@@ -1,0 +1,479 @@
+"""The on-device column-POA tile program in PyTorch: counterpart of
+hypo_tpu.poa.device_full, tie-exact with it and with its NumPy spec
+hypo_tpu.poa.colpoa_ref.
+
+A tile of B windows carries one fixed-shape graph state per window
+(``PoaState``, leading batch dimension B).  Each arm step ranks every
+graph, runs the graph-vs-arm DP (kernel 1, poa.cuda_poa), walks the
+backpointers and merges the arm; after the last step the heaviest-
+bundle consensus (kernel 2, poa.cuda_consensus) is curated and packed
+into nibbles.  Windows that overflow a cap get a sticky ``ovf`` flag
+and are re-run on the host engine by the runner.
+
+Where the JAX package expressed irregular indexing as one-hot compares
+and f32 matmuls (a TPU workaround, device_full.py:24-28, 105-142), this
+port uses integer gather / scatter: every scatter target below is
+unique per window (an alignment path visits each column, node and edge
+at most once), except a dummy slot past the end that absorbs masked
+writes and is dropped.  The rank order is a sort by (column position,
+node id) instead of JAX's counting; the two are equal.
+
+Everything runs on the device of the tensors it is given; the kernel
+wrappers take their plain versions only for CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import BIG, NCODES, NEG, ROV
+from .cuda_consensus import heaviest_bundle
+from .cuda_poa import poa_dp_batch
+
+_I32 = torch.int32
+
+
+class PoaState(NamedTuple):
+    """Per-window graph state; every leaf has a leading batch dim B."""
+    node_code: torch.Tensor   # [B, N] i32
+    node_col: torch.Tensor    # [B, N] i32
+    node_sup: torch.Tensor    # [B, N] i32
+    pred_nd: torch.Tensor     # [B, N, P] i32 (node ids, -1 empty)
+    pred_w: torch.Tensor      # [B, N, P] i32 (sequence counts)
+    pred_cnt: torch.Tensor    # [B, N] i32
+    out_cnt: torch.Tensor     # [B, N] i32
+    col_pos: torch.Tensor     # [B, N] i32 (column -> topo position)
+    col_node: torch.Tensor    # [B, N, NCODES] i32 (-1 empty)
+    n_nodes: torch.Tensor     # [B] i32
+    n_cols: torch.Tensor      # [B] i32
+    ovf: torch.Tensor         # [B] bool
+
+
+def init_state(N: int, P: int, B: int, device) -> PoaState:
+    z = lambda *s: torch.zeros(s, dtype=_I32, device=device)  # noqa: E731
+    return PoaState(
+        node_code=z(B, N), node_col=z(B, N), node_sup=z(B, N),
+        pred_nd=torch.full((B, N, P), -1, dtype=_I32, device=device),
+        pred_w=z(B, N, P), pred_cnt=z(B, N), out_cnt=z(B, N),
+        col_pos=z(B, N),
+        col_node=torch.full((B, N, NCODES), -1, dtype=_I32, device=device),
+        n_nodes=z(B), n_cols=z(B),
+        ovf=torch.zeros(B, dtype=torch.bool, device=device))
+
+
+class RankArrays(NamedTuple):
+    """Per-rank views of the graph (leading batch dim B everywhere).
+    Rows r >= n_nodes hold the JAX package's padding: zeros, so
+    pred_cnt_r = 1, is_end_r = True and pred_rows = 1 there."""
+    order: torch.Tensor        # [B, N] node id at rank r (0 past n_nodes)
+    rank_of: torch.Tensor      # [B, N] rank of node v (BIG invalid)
+    node_code_r: torch.Tensor  # [B, N]
+    node_col_r: torch.Tensor   # [B, N]
+    node_sup_r: torch.Tensor   # [B, N]
+    pred_nd_r: torch.Tensor    # [B, N, P] node ids (-1 empty)
+    pred_ranks: torch.Tensor   # [B, N, P] pred ranks (-1 empty)
+    pred_rows: torch.Tensor    # [B, N, P] pred rank + 1 (0 empty)
+    pred_cnt_r: torch.Tensor   # [B, N] (clamped >= 1)
+    pred_w_r: torch.Tensor     # [B, N, P]
+    is_end_r: torch.Tensor     # [B, N] bool
+
+
+def _take(x, idx):
+    """x[b, idx[b, ...]] along dim 1 for x [B, M] and any idx [B, ...]."""
+    B = x.shape[0]
+    return x.gather(1, idx.reshape(B, -1).long()).reshape(idx.shape)
+
+
+def _put(x, idx, val, mask, add=False):
+    """Copy of x [B, M] with x[b, idx] = val (or += val with ``add``)
+    where mask.  Masked-out and out-of-range writes go to a dummy slot
+    that is dropped.  Plain writes that are kept must not collide unless
+    they write the same value."""
+    B, M = x.shape
+    ok = mask & (idx >= 0) & (idx < M)
+    out = torch.cat([x, x.new_zeros(B, 1)], dim=1)
+    index = torch.where(ok, idx, M).reshape(B, -1).long()
+    src = val.to(x.dtype).expand_as(idx).reshape(B, -1)
+    if add:
+        out.scatter_add_(1, index, src)
+    else:
+        out.scatter_(1, index, src)
+    return out[:, :M]
+
+
+def _rank_arrays_batch(st: PoaState, N: int) -> RankArrays:
+    """Topological order (column position, node id) over valid nodes,
+    plus the graph arrays permuted into rank order
+    (hypo_tpu device_full._rank_arrays_batch)."""
+    B = st.node_code.shape[0]
+    P = st.pred_nd.shape[2]
+    dev = st.node_code.device
+    idx = torch.arange(N, dtype=_I32, device=dev)
+    # [B, N]: node ids below n_nodes are valid, and so are ranks
+    nvalid = idx[None, :] < st.n_nodes[:, None]
+    pos = _take(st.col_pos, st.node_col.clamp(0, N - 1)).long()
+    key = torch.where(nvalid, pos * N + idx, N * N + N)
+    order_all = torch.argsort(key, dim=1)                       # [B, N]
+    rank_all = torch.empty_like(order_all).scatter_(
+        1, order_all, torch.arange(N, device=dev).expand(B, N))
+    rank_of = torch.where(nvalid, rank_all.to(_I32), BIG)
+    order = torch.where(nvalid, order_all.to(_I32), 0)
+    pn = st.pred_nd
+    pred_rank_un = torch.where(pn >= 0, _take(rank_of, pn.clamp(min=0)),
+                               -1)
+
+    def perm(x):
+        if x.dim() == 2:
+            g = x.gather(1, order_all)
+            return torch.where(nvalid, g, 0)
+        g = x.gather(1, order_all[:, :, None].expand(B, N, x.shape[2]))
+        return torch.where(nvalid[:, :, None], g, 0)
+
+    pred_nd_r = perm(pn)
+    pred_ranks = perm(pred_rank_un)
+    return RankArrays(
+        order=order, rank_of=rank_of,
+        node_code_r=perm(st.node_code), node_col_r=perm(st.node_col),
+        node_sup_r=perm(st.node_sup), pred_nd_r=pred_nd_r,
+        pred_ranks=pred_ranks,
+        pred_rows=torch.where(pred_nd_r >= 0, pred_ranks + 1, 0),
+        pred_cnt_r=perm(st.pred_cnt).clamp(min=1),
+        pred_w_r=perm(st.pred_w), is_end_r=perm(st.out_cnt) == 0)
+
+
+# the batched traceback checks for "all windows stopped" (a host sync)
+# only every this many steps; extra steps are no-ops for stopped windows
+_TB_CHECK_EVERY = 32
+
+
+def _traceback_matched_batch(bp, pred_rows, arm_len, mode, max_row, *,
+                             active, N, L, P):
+    """Walk the backpointers of the whole batch in lockstep; returns
+    matched [B, L] i32: the rank of the graph node arm base j aligned to,
+    or -1 (insertion / unaligned head)."""
+    B = bp.shape[0]
+    dev = bp.device
+    bpf = bp.reshape(B, -1)
+    prf = pred_rows.reshape(B, -1)
+    ncell = (N + 1) * (L + 1)
+    rov = mode == ROV
+
+    def stop_of(i, j):
+        return torch.where(rov, (i == 0) | (j == 0), (i == 0) & (j == 0))
+
+    i, j = max_row, arm_len
+    stopped = stop_of(i, j) | ~active
+    # column L parks the writes of steps that consume no arm base
+    matched = torch.full((B, L + 1), -1, dtype=_I32, device=dev)
+    for t in range(N + L + 1):
+        if t % _TB_CHECK_EVERY == 0 and bool(stopped.all()):
+            break
+        code = _take(bpf, (i * (L + 1) + j).clamp(0, ncell - 1)).to(_I32)
+        is_vert = (code >= P) & (code < 2 * P)
+        is_horiz = code == 2 * P
+        pidx = torch.where(code < P, code, code - P).clamp(0, P - 1)
+        pred = _take(prf, (i - 1).clamp(min=0) * P + pidx)
+        prev_i = torch.where(is_horiz, i, pred)
+        prev_j = torch.where(is_vert, j, j - 1)
+        prev_i = torch.where(i == 0, 0, prev_i)
+        prev_j = torch.where(i == 0, j - 1, prev_j)
+        emit = (prev_j != j) & ~stopped & (j >= 1)     # a base consumed
+        diag = emit & (prev_i != i) & (i > 0)          # aligned to i-1
+        rec_j = torch.where(emit, j - 1, L)
+        rec_r = torch.where(diag, i - 1, -1).to(_I32)
+        matched.scatter_(1, rec_j[:, None].long(), rec_r[:, None])
+        i = torch.where(stopped, i, prev_i)
+        j = torch.where(stopped, j, prev_j)
+        stopped = stopped | stop_of(i, j)
+    return matched[:, :L]
+
+
+def _merge(st: PoaState, node_col_r, matched, arm, arm_len, w, *, N, L, P):
+    """Batched merge of one aligned arm with multiplicity weight w into
+    every window's graph (hypo_tpu device_full._merge; colpoa_ref
+    ColPoa.add).  Returns (new state, overflowed [B] bool); the new
+    state's ovf is the old one (the caller makes it sticky)."""
+    B = arm.shape[0]
+    dev = arm.device
+    jj = torch.arange(L, dtype=_I32, device=dev)[None, :]
+    valid_j = jj < arm_len[:, None]
+    is_match = (matched >= 0) & valid_j
+    mi = matched.clamp(min=0)
+    c_match = torch.where(is_match, _take(node_col_r, mi), 0)
+    arm_c = arm.clamp(0, NCODES - 1)
+    cn_flat = st.col_node.reshape(B, N * NCODES)
+    exist = torch.where(is_match, _take(cn_flat, c_match * NCODES + arm_c),
+                        -1)
+    creates_node = valid_j & (~is_match | (exist < 0))
+    new_ord = torch.cumsum(creates_node, dim=1, dtype=_I32)
+    node_j = torch.where(creates_node, st.n_nodes[:, None] - 1 + new_ord,
+                         torch.where(is_match, exist, -1))
+    is_ins = valid_j & ~is_match
+    newcol_ord = torch.cumsum(is_ins, dim=1, dtype=_I32)
+    new_col_id = st.n_cols[:, None] - 1 + newcol_ord
+    col_j = torch.where(is_match, c_match, new_col_id)
+    n_new_nodes = new_ord[:, L - 1]
+    n_new_cols = newcol_ord[:, L - 1]
+    ovf = ((st.n_nodes + n_new_nodes > N)
+           | (st.n_cols + n_new_cols > N))
+
+    # column renumbering, arithmetically: every inserted run of columns
+    # is anchored after the last matched column position ("lastpos");
+    # an existing column at position p shifts by the number of
+    # insertions anchored strictly before p, and inserted column t of
+    # the run anchored at q lands at q + shift(q) + t (positions of the
+    # state before this arm)
+    mpos = torch.where(is_match, _take(st.col_pos, c_match), -BIG)
+    lastpos = torch.cummax(mpos, dim=1).values.clamp(min=-1)
+    lastj = torch.cummax(torch.where(is_match, jj, -1), dim=1).values
+    hist = _put(torch.zeros(B, N + 1, dtype=_I32, device=dev), lastpos + 1,
+                torch.ones_like(lastpos), is_ins, add=True)
+    cs = torch.cumsum(hist, dim=1, dtype=_I32)  # cs[q+1] = #ins at <= q
+    cidx = torch.arange(N, dtype=_I32, device=dev)[None, :]
+    col_pos_exist = torch.where(
+        cidx < st.n_cols[:, None],
+        st.col_pos + _take(cs, st.col_pos.clamp(0, N)), st.col_pos)
+    anchor_shift = torch.where(lastpos >= 0,
+                               _take(cs, lastpos.clamp(min=0)), 0)
+    pos_new = lastpos + anchor_shift + (jj - lastj)
+    col_pos = _put(col_pos_exist, new_col_id, pos_new, is_ins)
+
+    # node updates
+    node_code = _put(st.node_code, node_j, arm, creates_node)
+    node_col = _put(st.node_col, node_j, col_j, creates_node)
+    wl = w[:, None].expand(B, L)
+    node_sup = _put(st.node_sup, node_j, wl, valid_j, add=True)
+    col_node = _put(cn_flat, col_j * NCODES + arm_c, node_j,
+                    creates_node & (col_j >= 0) & (col_j < N)
+                    ).reshape(B, N, NCODES)
+
+    # edge upserts between consecutive emitted bases
+    u = torch.cat([torch.full((B, 1), -1, dtype=_I32, device=dev),
+                   node_j[:, :-1]], dim=1)
+    v = node_j
+    edge_valid = valid_j & (jj >= 1)
+    v_ok = edge_valid & (v >= 0) & (v < N)
+    vc = v.clamp(0, N - 1)
+    pnd_flat = st.pred_nd.reshape(B, N * P)
+    slots = vc[:, :, None] * P + torch.arange(P, device=dev)
+    pv = torch.where(v_ok[:, :, None], _take(pnd_flat, slots), 0)
+    vcnt = torch.where(v_ok, _take(st.pred_cnt, vc), 0)
+    hit = (pv == u[:, :, None]) & edge_valid[:, :, None]
+    has = hit.any(dim=2) & edge_valid
+    slot = torch.where(has, hit.to(_I32).argmax(dim=2).to(_I32), vcnt)
+    ovf = ovf | (edge_valid & ~has & (slot >= P)).any(dim=1)
+    slot_c = slot.clamp(max=P - 1)
+    flat_vs = v * P + slot_c
+    pred_w = _put(st.pred_w.reshape(B, N * P), flat_vs, wl,
+                  v_ok, add=True).reshape(B, N, P)
+    newslot = edge_valid & ~has
+    pred_nd = _put(pnd_flat, flat_vs, u, newslot & v_ok).reshape(B, N, P)
+    pred_cnt = _put(st.pred_cnt, v, torch.ones_like(v), newslot, add=True)
+    out_cnt = _put(st.out_cnt, u, torch.ones_like(u), newslot, add=True)
+
+    new_st = PoaState(
+        node_code=node_code, node_col=node_col, node_sup=node_sup,
+        pred_nd=pred_nd, pred_w=pred_w, pred_cnt=pred_cnt,
+        out_cnt=out_cnt, col_pos=col_pos, col_node=col_node,
+        n_nodes=st.n_nodes + n_new_nodes, n_cols=st.n_cols + n_new_cols,
+        ovf=st.ovf)
+    return new_st, ovf
+
+
+def _arm_step_batch(st: PoaState, arm, arm_len, mode, active, w=None, *,
+                    N, L, P, m, n, g) -> PoaState:
+    """One arm round for the whole window batch: rank, DP (kernel 1),
+    traceback, merge.  st leaves carry a leading batch dim B; arm [B, L];
+    arm_len, mode, active, w [B]."""
+    ra = _rank_arrays_batch(st, N)
+    # windows done with their arms (or empty this round) skip the DP
+    # (n_nodes -> 0) and start the traceback stopped
+    act = active & (arm_len > 0) & (st.n_nodes > 0)
+    nn_eff = torch.where(act, st.n_nodes, 0)
+    bp, max_row = poa_dp_batch(
+        ra.node_code_r, ra.pred_rows, ra.pred_cnt_r, ra.is_end_r, nn_eff,
+        arm, arm_len, mode, N=N, L=L, P=P, m=m, n=n, g=g)
+    matched = _traceback_matched_batch(bp, ra.pred_rows, arm_len, mode,
+                                       max_row, active=act, N=N, L=L, P=P)
+    # empty graph (first sequence): everything is an insertion
+    matched = torch.where((st.n_nodes == 0)[:, None], -1, matched)
+    if w is None:
+        w = torch.ones_like(arm_len)
+    new_st, ovf = _merge(st, ra.node_col_r, matched, arm, arm_len, w, N=N,
+                         L=L, P=P)
+    apply = active & (arm_len > 0) & ~st.ovf & ~ovf
+
+    def sel(old, new):
+        keep = apply.reshape(apply.shape + (1,) * (new.dim() - 1))
+        return torch.where(keep, new, old)
+
+    out = PoaState(*(sel(a, b) for a, b in zip(st, new_st)))
+    return out._replace(ovf=st.ovf | (active & (arm_len > 0) & ovf))
+
+
+def _consensus_wavefront(pred_ranks, pred_w_r, pred_cnt_r, is_end_r,
+                         node_code_r, node_sup_r, n_nodes, rank0, *, N, P):
+    """Plain heaviest-bundle consensus (the reference version of kernel 2;
+    hypo_tpu device_full._consensus_wavefront): every node relaxes from
+    its predecessors' current scores at once, iterated to the fixpoint,
+    which on a DAG equals the sequential result.  Branch completion runs
+    at most N rounds, as the kernel does.  Same arguments and results as
+    cuda_consensus.heaviest_bundle; codes and supports past cons_len are
+    0."""
+    B = pred_ranks.shape[0]
+    dev = pred_ranks.device
+    parange = torch.arange(P, dtype=_I32, device=dev)
+    narange = torch.arange(N, dtype=_I32, device=dev)
+    nn = n_nodes
+    valid_r = narange[None, :] < nn[:, None]
+    slot_base = ((parange[None, None, :] < pred_cnt_r[:, :, None])
+                 & (pred_ranks >= 0))
+    prf = pred_ranks.clamp(min=0).reshape(B, N * P).long()
+
+    def relax_all(scores, banned: bool):
+        sc_p = scores.gather(1, prf).reshape(B, N, P)
+        slot_ok = slot_base & (sc_p != -1) if banned else slot_base
+        best_w = torch.full((B, N), -1, dtype=_I32, device=dev)
+        best_pr = torch.full((B, N), -1, dtype=_I32, device=dev)
+        best_sc = torch.full((B, N), NEG, dtype=_I32, device=dev)
+        for p in range(P):
+            wp = pred_w_r[:, :, p]
+            sp = sc_p[:, :, p]
+            take = slot_ok[:, :, p] & (
+                (best_w < wp) | ((best_w == wp) & (best_sc <= sp)))
+            best_w = torch.where(take, wp, best_w)
+            best_pr = torch.where(take, pred_ranks[:, :, p], best_pr)
+            best_sc = torch.where(take, sp, best_sc)
+        return torch.where(best_pr >= 0, best_w + best_sc, -1), best_pr
+
+    def wavefront(scores, preds, banned: bool, upd):
+        for _ in range(N + 2):
+            ns, npr = relax_all(scores, banned)
+            ns = torch.where(upd, ns, scores)
+            npr = torch.where(upd, npr, preds)
+            changed = bool(((ns != scores) | (npr != preds)).any())
+            scores, preds = ns, npr
+            if not changed:
+                break
+        return scores, preds
+
+    scores = torch.full((B, N), -1, dtype=_I32, device=dev)
+    preds = torch.full((B, N), -1, dtype=_I32, device=dev)
+    scores, preds = wavefront(scores, preds, False, valid_r)
+    max_r = torch.where(valid_r, scores, NEG).argmax(dim=1).to(_I32)
+
+    for _ in range(N):
+        ie = _take(is_end_r, max_r.clamp(0, N - 1)[:, None])[:, 0]
+        act = (nn > 0) & ~ie
+        if not bool(act.any()):
+            break
+        mr = max_r[:, None, None]
+        succ = ((pred_ranks == mr) & slot_base).any(dim=2)       # [B, N]
+        ban = succ[:, :, None] & slot_base & (pred_ranks != mr)
+        banned = _put(torch.zeros(B, N, dtype=torch.bool, device=dev),
+                      pred_ranks.reshape(B, N * P),
+                      torch.ones((), dtype=torch.bool, device=dev),
+                      ban.reshape(B, N * P))
+        scores = torch.where(banned & act[:, None], -1, scores)
+        upd = (narange[None, :] > max_r[:, None]) & valid_r & act[:, None]
+        scores = torch.where(upd, -1, scores)
+        preds = torch.where(upd, -1, preds)
+        scores, preds = wavefront(scores, preds, True, upd)
+        masked = torch.where(upd, scores, NEG)
+        cand = torch.where(masked.amax(dim=1) > 0,
+                           masked.argmax(dim=1).to(_I32), rank0)
+        max_r = torch.where(act, cand, max_r)
+
+    r = torch.where(nn > 0, max_r, -1)
+    codes = torch.zeros((B, N), dtype=_I32, device=dev)
+    sups = torch.zeros((B, N), dtype=_I32, device=dev)
+    cons_len = torch.zeros((B,), dtype=_I32, device=dev)
+    for t in range(N):
+        alive = r >= 0
+        if not bool(alive.any()):
+            break
+        rr = r.clamp(0, N - 1)[:, None]
+        codes[:, t] = torch.where(alive, _take(node_code_r, rr)[:, 0], 0)
+        sups[:, t] = torch.where(alive, _take(node_sup_r, rr)[:, 0], 0)
+        cons_len += alive.to(_I32)
+        r = torch.where(alive, _take(preds, rr)[:, 0], r)
+    return codes, sups, cons_len
+
+
+def _consensus_batch(st: PoaState, *, N, P):
+    """Heaviest-bundle consensus of every window (kernel 2 on CUDA, the
+    wavefront on the CPU), reversed into forward order.  Returns
+    (cons_codes [B, N], cons_sup [B, N], cons_len [B])."""
+    ra = _rank_arrays_batch(st, N)
+    codes_bwd, sups_bwd, cons_len = heaviest_bundle(
+        ra.pred_ranks, ra.pred_w_r, ra.pred_cnt_r, ra.is_end_r,
+        ra.node_code_r, ra.node_sup_r, st.n_nodes,
+        ra.rank_of[:, 0].contiguous(), N=N, P=P)
+    narange = torch.arange(N, dtype=_I32, device=codes_bwd.device)
+    ridx = (cons_len[:, None] - 1 - narange[None, :]).clamp(min=0)
+    return _take(codes_bwd, ridx), _take(sups_bwd, ridx), cons_len
+
+
+def _finish_packed(st: PoaState, th, *, N, P):
+    """Consensus + curation against the per-window threshold th [B]
+    (0 keeps every base) + nibble packing.  Output int8 [B, N//2 + 4]:
+    nibble-packed codes | len lo | len hi | ovf | 0."""
+    cc, cs, cl = _consensus_batch(st, N=N, P=P)
+    B = cc.shape[0]
+    idx = torch.arange(N, dtype=_I32, device=cc.device)[None, :]
+    keep = (idx < cl[:, None]) & (cs >= th[:, None])
+    dst = torch.cumsum(keep, dim=1, dtype=_I32) - 1
+    clen = dst[:, -1] + 1
+    curated = _put(torch.zeros(B, N, dtype=_I32, device=cc.device), dst, cc,
+                   keep)
+    packed = curated[:, 0::2] | (curated[:, 1::2] << 4)
+    meta = torch.stack([clen & 0xFF, (clen >> 8) & 0xFF, st.ovf.to(_I32),
+                        torch.zeros_like(clen)], dim=1)
+    return torch.cat([packed, meta], dim=1).to(torch.uint8).view(torch.int8)
+
+
+def run_arm_steps(pool, plen, idx, amode, aw, narms, *, N, L, P, m, n, g,
+                  device) -> PoaState:
+    """Merge every window's arms into a fresh graph state on ``device``.
+    pool [A, L] arm codes; plen [A]; idx [B, K] pool row of arm k of
+    window b (-1 none); amode [B, K]; aw [B, K] weights; narms [B]."""
+    pool, plen, idx, amode, aw, narms = (
+        torch.as_tensor(x, device=device).to(_I32)
+        for x in (pool, plen, idx, amode, aw, narms))
+    B = idx.shape[0]
+    st = init_state(N, P, B, device)
+    for k in range(int(narms.max()) if B else 0):
+        rows = idx[:, k]
+        active = (k < narms) & (rows >= 0)
+        rr = rows.clamp(min=0).long()
+        arm = pool[rr]
+        al = torch.where(active, plen[rr], 0)
+        st = _arm_step_batch(st, arm, al, amode[:, k].contiguous(), active,
+                             aw[:, k].contiguous(), N=N, L=L, P=P, m=m, n=n,
+                             g=g)
+    return st
+
+
+def build_tile_program(*, N: int, L: int, K: int, P: int, m: int, n: int,
+                       g: int, B: int, A: int, device):
+    """The tile program of one shape class on one device (the
+    ``ndev == 1`` case of hypo_tpu device_full.build_tile_program):
+    ``tile(pool i8 [A, L], plen i32 [A], idx i32 [B, K], amode i8 [B, K],
+    aw i32 [B, K], narms i32 [B], th i32 [B]) -> int8 [B, N//2 + 4]``
+    (see _finish_packed), computed on ``device``.  Arguments may be
+    numpy arrays or tensors; the arm loop runs to the tile's largest
+    arm count."""
+    device = torch.device(device)
+
+    def tile(pool, plen, idx, amode, aw, narms, th):
+        if tuple(pool.shape) != (A, L) or tuple(idx.shape) != (B, K):
+            raise ValueError(f"tile: pool {tuple(pool.shape)} / idx "
+                             f"{tuple(idx.shape)}, expected {(A, L)} / "
+                             f"{(B, K)}")
+        st = run_arm_steps(pool, plen, idx, amode, aw, narms, N=N, L=L, P=P,
+                           m=m, n=n, g=g, device=device)
+        th = torch.as_tensor(th, device=device).to(_I32)
+        return _finish_packed(st, th, N=N, P=P)
+
+    return tile
