@@ -7,11 +7,16 @@ Phases, each raising on failure (so the script exits non-zero and never
 prints its last line):
   1. environment: torch / CUDA / nvcc versions, the card's name and
      power limit; fails without CUDA;
-  2. build both CUDA kernels with nvcc (timed);
+  2. build the three CUDA kernels with nvcc, one nvcc each, all started
+     together (timed);
   3. DP kernel vs its plain PyTorch version on the card, at the class-0
      (B=2048, N=256, L=126, P=8; a chain and a multi-predecessor bucket)
      and class-1 (B=256, N=1024, L=510, P=8) tile shapes, mixed
      NW/LOV/ROV modes and ragged n_nodes: exact equality, median times;
+     then the DP and traceback kernels vs their plain versions at exact
+     mode's buckets (N 64, L 64, P 1, short scores, B=4096; N 1024,
+     L 512, P 4 and N 1024, L 1024, P 4, long scores, B=64 and 8):
+     exact equality of bp, max_row, ti, tj and steps, median times;
   4. consensus kernel vs its plain version on the rank arrays of a real
      tile of each shape class (class 0: B=2048, N=256, L=126; class 1:
      B=256, N=1024, L=510; random windows merged by the port's arm
@@ -26,7 +31,18 @@ prints its last line):
      ``hypo_tpu_torch.cli --device-poa`` (in this process, kernel launch
      counters reset just before) and by the host engine
      (``hypo_tpu.cli --no-device-poa``, a subprocess): identical FASTA
-     md5, stage times, QV before/after.
+     md5, stage times, QV before/after;
+  7. exact mode end to end: a 1 Mbp hybrid simulation (30x short, 25x
+     long reads, short-read dropout over 3% of the genome) polished by
+     ``hypo_tpu_torch.cli -B lr.bam --device-poa --device-poa-mode
+     exact`` (LONG windows on the card) and, on the same input, in mode
+     full; both md5 equal to the host engine's;
+  8. full mode without hypo_tpu's native host library
+     (``HYPO_TPU_NO_NATIVE=1``: pure-Python host stages and the runner's
+     run_windows path) on a 200 kbp hybrid simulation: md5 equal to the
+     native host engine's.
+Phases 6-8 run the port in this process, every launch counter set to 0
+just before each run and read just after.
 Tolerance everywhere: 0 (every compared value is an integer).
 
 The last lines are the card (nvidia-smi name, power limit), one JSON
@@ -54,10 +70,15 @@ from hypo_tpu_torch.poa import NW, LOV, ROV
 from hypo_tpu_torch.poa import device_full as TF
 from hypo_tpu_torch.poa.cuda_consensus import heaviest_bundle
 from hypo_tpu_torch.poa.cuda_poa import poa_dp_batch
-from hypo_tpu_torch.poa.dp import poa_dp_batch_ref
+from hypo_tpu_torch.poa.cuda_tb import poa_tb_batch
+from hypo_tpu_torch.poa.dp import poa_dp_batch_ref, poa_tb_batch_ref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCORES = dict(m=5, n=-4, g=-8)
+LONG_SCORES = dict(m=3, n=-5, g=-4)
+KERNELS = ("poa_dp", "poa_tb", "consensus")
+COUNTERS = {"poa_dp": poa_dp_batch, "poa_tb": poa_tb_batch,
+            "consensus": heaviest_bundle}
 REPS = 5
 KERNEL_INNER = 10
 POA_RE = re.compile(r"POA over (\d+) windows\. \[([0-9.]+) sec")
@@ -113,11 +134,16 @@ def phase_env() -> str:
 # -- 2. build -----------------------------------------------------------------
 
 def phase_build() -> None:
-    for name in ("poa_dp", "consensus"):
-        t0 = time.time()
-        _build.load(name)
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.time()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for f in [pool.submit(_build.load, name) for name in KERNELS]:
+            f.result()
+    log(f"build of {len(KERNELS)} kernels, one nvcc each, all together: "
+        f"{time.time() - t0:.2f} s")
+    for name in KERNELS:
         secs, out = _build.build_log.get(name, (0.0, "(already built)"))
-        log(f"build {name}: {time.time() - t0:.2f} s (nvcc {secs:.2f} s)")
+        log(f"build {name}: its nvcc ran {secs:.2f} s (concurrently)")
         for line in out.splitlines():
             if re.search(r"registers|spill|smem|error|warning", line):
                 log("  " + line.strip())
@@ -125,9 +151,10 @@ def phase_build() -> None:
 
 # -- 3. DP kernel vs plain ----------------------------------------------------
 
-def dp_bucket(rng, B, N, L, P, multi: bool, dev):
+def dp_bucket(rng, B, N, L, P, multi: bool, dev, inactive: float = 0.02):
     """bench.py's chain / multi-predecessor recipe with mixed modes,
-    ragged graph sizes (a few inactive windows) and ragged arms."""
+    ragged graph sizes (a share ``inactive`` of windows empty) and
+    ragged arms."""
     nc = rng.integers(0, 4, (B, N))
     pr = np.tile(np.arange(N)[None, :, None], (B, 1, P))
     pc = np.ones((B, N), np.int64)
@@ -139,7 +166,7 @@ def dp_bucket(rng, B, N, L, P, multi: bool, dev):
             pr[:, :, p] = np.maximum(pr[:, :, 0] - rng.integers(1, 8, (B, N)),
                                      0)
     nn = rng.integers(N // 4, N + 1, B)
-    nn[rng.random(B) < 0.02] = 0
+    nn[rng.random(B) < inactive] = 0
     ie = rng.random((B, N)) < 0.05
     ie[np.arange(B), np.maximum(nn - 1, 0)] = True
     arm = rng.integers(0, 4, (B, L))
@@ -179,6 +206,64 @@ def phase_dp(rng, dev) -> dict:
         res[name] = dict(ms=ms, plain_ms=plain_ms,
                          max_abs_err=max(bp_diff, mr_diff))
     return res
+
+
+# exact mode's buckets: name, B, N, L, P, scores
+EXACT_BUCKETS = (("exact_N64_L64_P1", 4096, 64, 64, 1, SCORES),
+                 ("exact_N1024_L512_P4", 64, 1024, 512, 4, LONG_SCORES),
+                 ("exact_N1024_L1024_P4", 8, 1024, 1024, 4, LONG_SCORES))
+
+
+def phase_exact_dp(rng, dev) -> tuple:
+    """Kernels 1 and 3 against their plain versions at exact mode's
+    buckets.  Every window is active, as in exact mode (it launches
+    groups at their exact size).  Kernel 3 and the plain traceback walk
+    the kernel's bp; the kernels' chain is also held against the plain
+    chain (poa_dp_batch_ref then poa_tb_batch_ref)."""
+    dp, tb = {}, {}
+    for name, B, N, L, P, sc in EXACT_BUCKETS:
+        args = dp_bucket(rng, B, N, L, P, P > 1, dev, inactive=0.0)
+        kw = dict(N=N, L=L, P=P, **sc)
+        bp_k, mr_k = poa_dp_batch(*args, **kw)
+        bp_p, mr_p = poa_dp_batch_ref(*args, **kw)
+        tb_args = (bp_k, args[1], mr_k, args[6], args[7])
+        out_k = poa_tb_batch(*tb_args, N=N, L=L, P=P)
+        out_p = poa_tb_batch_ref(*tb_args, N=N, L=L, P=P)
+        chain_p = poa_tb_batch_ref(bp_p, args[1], mr_p, args[6], args[7],
+                                   N=N, L=L, P=P)
+        torch.cuda.synchronize()
+        nn = args[4]
+        rows = (torch.arange(N + 1, device=dev)[None, :]
+                <= nn[:, None])[:, :, None]
+        bp_diff = ((bp_k.int() - bp_p.int()).abs() * rows).amax().item()
+        mr_diff = (mr_k - mr_p).abs().amax().item()
+        tb_diff = max((a.int() - b.int()).abs().amax().item()
+                      for a, b in zip(out_k, out_p))
+        chain_diff = max((a.int() - b.int()).abs().amax().item()
+                         for a, b in zip(out_k, chain_p))
+        if bp_diff or mr_diff or tb_diff or chain_diff:
+            raise RuntimeError(
+                f"exact {name}: kernel != plain (max |diff| bp {bp_diff}, "
+                f"max_row {mr_diff}, traceback {tb_diff}, DP+traceback "
+                f"chain {chain_diff})")
+        dp_ms = cuda_ms(lambda: poa_dp_batch(*args, **kw),
+                        inner=KERNEL_INNER)
+        dp_plain = cuda_ms(lambda: poa_dp_batch_ref(*args, **kw))
+        tb_ms = cuda_ms(lambda: poa_tb_batch(*tb_args, N=N, L=L, P=P),
+                        inner=KERNEL_INNER)
+        tb_plain = cuda_ms(lambda: poa_tb_batch_ref(*tb_args, N=N, L=L,
+                                                    P=P))
+        steps = out_k[2]
+        log(f"exact {name} B={B}: equal (bp rows <= n_nodes, max_row, ti, "
+            f"tj, steps; steps mean {steps.float().mean().item():.0f} max "
+            f"{int(steps.max())}); DP kernel {dp_ms:.3f} ms, plain "
+            f"{dp_plain:.3f} ms; traceback kernel {tb_ms:.3f} ms, plain "
+            f"{tb_plain:.3f} ms")
+        dp[name] = dict(ms=dp_ms, plain_ms=dp_plain,
+                        max_abs_err=max(bp_diff, mr_diff))
+        tb[name] = dict(ms=tb_ms, plain_ms=tb_plain,
+                        max_abs_err=max(tb_diff, chain_diff))
+    return dp, tb
 
 
 # -- 4./5. a real class-0 tile: consensus kernel, tile vs spec ---------------
@@ -395,82 +480,204 @@ def _md5(path: str) -> str:
         return hashlib.md5(fh.read()).hexdigest()
 
 
-def phase_e2e(tmp: str, genome_size: int = 4_000_000) -> dict:
-    from hypo_tpu.eval_qv import compare
-    from hypo_tpu.native import host_api
-    from hypo_tpu_torch import cli
-
-    if not host_api.available():
-        raise RuntimeError("the native host library did not build/load")
-    env = dict(os.environ, PYTHONPATH=HERE)
-    sim = os.path.join(tmp, "sim")
+def simulate(tmp: str, name: str, genome_size: int, hybrid: bool):
+    """A hypo_tpu.sim dataset (seed 1, 30x short reads; hybrid: 25x long
+    reads and short-read dropout over [0.30, 0.33) of the genome, the
+    hybrid recipe of SCALE.md) and the polishing arguments that read it
+    (``-B lr.bam`` when hybrid)."""
+    sim = os.path.join(tmp, name)
+    extra = ["--long-cov", "25", "--dropout", "0.30,0.33"] if hybrid else []
     t0 = time.time()
     subprocess.run([sys.executable, "-m", "hypo_tpu.sim", "--out", sim,
                     "--genome-size", str(genome_size), "--short-cov", "30",
-                    "--seed", "1"], cwd=HERE, env=env, check=True,
+                    *extra, "--seed", "1"], cwd=HERE,
+                   env=dict(os.environ, PYTHONPATH=HERE), check=True,
                    capture_output=True)
-    log(f"sim {genome_size / 1e6:g} Mbp / 30x: {time.time() - t0:.1f} s")
-    threads = str(os.cpu_count() or 1)
+    log(f"sim {name}: {genome_size / 1e6:g} Mbp, 30x short"
+        f"{', 25x long' if hybrid else ''}: {time.time() - t0:.1f} s")
     common = ["-r", f"{sim}/reads.fq.gz", "-d", f"{sim}/draft.fa",
               "-b", f"{sim}/sr.bam", "-c", "30", "-s", str(genome_size),
-              "-t", threads]
+              "-t", str(os.cpu_count() or 1)]
+    if hybrid:
+        common += ["-B", f"{sim}/lr.bam"]
+    return sim, common
 
-    dev_out = os.path.join(tmp, "torch.fa")
-    poa_dp_batch.launches = 0
-    heaviest_bundle.launches = 0
+
+def stage_times(text: str):
+    """(windows, POA-stage seconds, total seconds) from the Monitor."""
+    mp, mt = POA_RE.search(text), TOTAL_RE.search(text)
+    return int(mp.group(1)), float(mp.group(2)), float(mt.group(1))
+
+
+def run_port(argv, no_native: bool = False):
+    """``hypo_tpu_torch.cli`` in this process, every kernel launch counter
+    set to 0 just before and read just after; ``no_native`` sets
+    HYPO_TPU_NO_NATIVE=1 for the run.  Returns (stats, launches,
+    (windows, POA seconds, total seconds), wall seconds)."""
+    from hypo_tpu_torch import cli
+    for counted in COUNTERS.values():
+        counted.launches = 0
     buf = io.StringIO()
     old = sys.stderr
     sys.stderr = _Tee(old, buf)
+    if no_native:
+        os.environ["HYPO_TPU_NO_NATIVE"] = "1"
     t0 = time.time()
     try:
-        polisher = cli.run(common + ["-o", dev_out, "--device-poa"])
+        polisher = cli.run(argv)
         torch.cuda.synchronize()
     finally:
         sys.stderr = old
+        os.environ.pop("HYPO_TPU_NO_NATIVE", None)
     wall = time.time() - t0
-    launches = {"poa_dp": poa_dp_batch.launches,
-                "consensus": heaviest_bundle.launches}
-    text = buf.getvalue()
-    mp, mt = POA_RE.search(text), TOTAL_RE.search(text)
-    stats = polisher.device_runner.stats
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    return (polisher.device_runner.stats, launches,
+            stage_times(buf.getvalue()), wall)
 
-    host_out = os.path.join(tmp, "host.fa")
+
+def run_host(common, out: str):
+    """hypo_tpu's native host engine in a subprocess: (md5, stage
+    times)."""
     r = subprocess.run([sys.executable, "-m", "hypo_tpu.cli", *common,
-                        "-o", host_out, "--no-device-poa"], cwd=HERE,
-                       env=env, capture_output=True, text=True, check=True)
-    hp, ht = POA_RE.search(r.stderr), TOTAL_RE.search(r.stderr)
-    md5_dev, md5_host = _md5(dev_out), _md5(host_out)
+                        "-o", out, "--no-device-poa"], cwd=HERE,
+                       env=dict(os.environ, PYTHONPATH=HERE),
+                       capture_output=True, text=True, check=True)
+    return _md5(out), stage_times(r.stderr)
+
+
+def check_launches(path: str, launches: dict, kernels) -> None:
+    log(f"{path}: kernel launches {launches}")
+    for name in kernels:
+        if launches[name] <= 0:
+            raise RuntimeError(f"{path}: kernel {name} never launched")
+
+
+def check_qv(what: str, sim: str, out: str) -> None:
+    from hypo_tpu.eval_qv import compare
     q0 = compare(f"{sim}/truth.fa", f"{sim}/draft.fa")
-    q1 = compare(f"{sim}/truth.fa", dev_out)
-    nwin, poa_s, total_s = int(mp.group(1)), float(mp.group(2)), \
-        float(mt.group(1))
-    log(f"e2e port (--device-poa, -t {threads}): {nwin} windows, POA stage "
-        f"{poa_s:.2f} s ({nwin / poa_s:.0f} windows/s), total {total_s:.2f}"
-        f" s (wall {wall:.2f} s)")
-    log(f"e2e port device stats: device windows {stats['full_windows']}, "
+    q1 = compare(f"{sim}/truth.fa", out)
+    log(f"{what} QV: draft {q0['qv']:.2f} (edit distance "
+        f"{q0['edit_distance']}) -> polished {q1['qv']:.2f} "
+        f"({q1['edit_distance']})")
+    if not q1["edit_distance"] < q0["edit_distance"]:
+        raise RuntimeError(f"{what}: polishing did not reduce the edit "
+                           f"distance")
+
+
+def log_times(what: str, times, wall=None) -> None:
+    nwin, poa_s, total_s = times
+    log(f"{what}: {nwin} windows, POA stage {poa_s:.2f} s "
+        f"({nwin / poa_s:.0f} windows/s), total {total_s:.2f} s"
+        + (f" (wall {wall:.2f} s)" if wall is not None else ""))
+
+
+def log_tiles(what: str, stats: dict) -> None:
+    log(f"{what} device stats: device windows {stats['full_windows']}, "
         f"tiles {stats['full_dispatches']}, overflows "
         f"{stats['full_overflows']}, host-routed windows "
         f"{stats['host_long_windows'] + stats['host_fallbacks']} (long "
         f"{stats['host_long_windows']}, fallbacks {stats['host_fallbacks']})"
         f", trivial {stats['trivial_windows']}; per class: tiles "
         f"{stats['class_tiles']}, windows {stats['class_windows']}")
-    log(f"e2e host engine (--no-device-poa): {int(hp.group(1))} windows, "
-        f"POA stage {float(hp.group(2)):.2f} s, total "
-        f"{float(ht.group(1)):.2f} s")
-    log(f"e2e QV: draft {q0['qv']:.2f} (edit distance "
-        f"{q0['edit_distance']}) -> polished {q1['qv']:.2f} "
-        f"({q1['edit_distance']})")
-    log(f"e2e md5: port {md5_dev} host {md5_host}")
-    log(f"e2e kernel launches on the main path: {launches}")
-    if md5_dev != md5_host:
-        raise RuntimeError("port and host engine FASTA differ")
     if stats["full_windows"] <= 0:
-        raise RuntimeError("no window went through the device")
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            raise RuntimeError(f"kernel {name} never launched on the path")
-    if not q1["edit_distance"] < q0["edit_distance"]:
-        raise RuntimeError("polishing did not reduce the edit distance")
+        raise RuntimeError(f"{what}: no window went through the device")
+
+
+def same_md5(what: str, port: str, host: str) -> None:
+    log(f"{what} md5: port {port} host {host}")
+    if port != host:
+        raise RuntimeError(f"{what}: port and host engine FASTA differ")
+
+
+def phase_e2e(tmp: str, genome_size: int = 4_000_000) -> dict:
+    from hypo_tpu.native import host_api
+    if not host_api.available():
+        raise RuntimeError("the native host library did not build/load")
+    sim, common = simulate(tmp, "sim_4m", genome_size, hybrid=False)
+    out = os.path.join(tmp, "torch_4m.fa")
+    stats, launches, times, wall = run_port(
+        common + ["-o", out, "--device-poa"])
+    md5_host, host_times = run_host(common, os.path.join(tmp, "host_4m.fa"))
+    log_times(f"e2e port (--device-poa, {common[-1]} threads)", times, wall)
+    log_tiles("e2e port", stats)
+    log_times("e2e host engine (--no-device-poa)", host_times)
+    check_qv("e2e", sim, out)
+    same_md5("e2e", _md5(out), md5_host)
+    check_launches("e2e (full mode, 4 Mbp)", launches,
+                   ("poa_dp", "consensus"))
+    return launches
+
+
+def phase_exact_e2e(tmp: str, genome_size: int = 1_000_000) -> tuple:
+    """Exact mode on a hybrid simulation, then full mode on the same."""
+    sim, common = simulate(tmp, "sim_hybrid", genome_size, hybrid=True)
+    md5_host, host_times = run_host(common,
+                                    os.path.join(tmp, "host_hybrid.fa"))
+    out = os.path.join(tmp, "torch_exact.fa")
+    # where the POA stage goes: each device call (kernel 1 then kernel 3)
+    # timed on the host clock up to a synchronize; the rest is host work
+    from hypo_tpu_torch.poa import batch
+    device_s = [0.0]
+    orig = batch.poa_dp_tb_batch
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        res = orig(*a, **k)
+        torch.cuda.synchronize()
+        device_s[0] += time.perf_counter() - t0
+        return res
+
+    batch.poa_dp_tb_batch = timed
+    try:
+        stats, launches, times, wall = run_port(
+            common + ["-o", out, "--device-poa", "--device-poa-mode",
+                      "exact"])
+    finally:
+        batch.poa_dp_tb_batch = orig
+    log_times("exact port (--device-poa-mode exact)", times, wall)
+    aligns = stats["device_aligns"]
+    log(f"exact port device stats: device rounds {stats['device_rounds']}, "
+        f"device aligns {aligns} (of LONG windows {stats['long_aligns']}), "
+        f"host fallbacks {stats['host_fallbacks']}")
+    host_s = times[1] - device_s[0]
+    log(f"exact POA stage {times[1]:.2f} s: device calls {device_s[0]:.2f} s"
+        f" ({stats['device_rounds']} calls, kernels 1 + 3 to a sync), the "
+        f"rest {host_s:.2f} s ({1e6 * host_s / max(aligns, 1):.0f} us per "
+        f"aligned arm: job building, graph extraction, copies, merges)")
+    log_times("exact host engine (--no-device-poa)", host_times)
+    check_qv("exact", sim, out)
+    same_md5("exact", _md5(out), md5_host)
+    if stats["device_aligns"] <= 0:
+        raise RuntimeError("exact: no arm was aligned on the device")
+    check_launches("exact (1 Mbp hybrid)", launches, ("poa_dp", "poa_tb"))
+
+    out = os.path.join(tmp, "torch_full_hybrid.fa")
+    stats, full_launches, times, wall = run_port(
+        common + ["-o", out, "--device-poa"])
+    log_times("hybrid full-mode port (--device-poa)", times, wall)
+    log_tiles("hybrid full-mode port", stats)
+    same_md5("hybrid full mode", _md5(out), md5_host)
+    check_launches("full mode (1 Mbp hybrid)", full_launches,
+                   ("poa_dp", "consensus"))
+    return launches, full_launches
+
+
+def phase_no_native(tmp: str, genome_size: int = 200_000) -> dict:
+    """Full mode with HYPO_TPU_NO_NATIVE=1: pure-Python host stages and
+    the runner's run_windows path, against the native host engine."""
+    sim, common = simulate(tmp, "sim_no_native", genome_size, hybrid=True)
+    md5_host, host_times = run_host(common,
+                                    os.path.join(tmp, "host_no_native.fa"))
+    out = os.path.join(tmp, "torch_no_native.fa")
+    stats, launches, times, wall = run_port(
+        common + ["-o", out, "--device-poa"], no_native=True)
+    log_times("no-native port (HYPO_TPU_NO_NATIVE=1, --device-poa)", times,
+              wall)
+    log_tiles("no-native port", stats)
+    log_times("no-native host engine (native, --no-device-poa)", host_times)
+    same_md5("no-native", _md5(out), md5_host)
+    check_launches("no-native (200 kbp hybrid)", launches,
+                   ("poa_dp", "consensus"))
     return launches
 
 
@@ -480,31 +687,40 @@ def main() -> None:
     rng = np.random.default_rng(20261016)
     phase_build()
     dp = phase_dp(rng, dev)
+    exact_dp, exact_tb = phase_exact_dp(rng, dev)
     cons = {t[0]: phase_tile(rng, dev, *t) for t in TILES}
     phase_profile(cons["class0"]["tile"], cons["class0"]["targs"])
     with tempfile.TemporaryDirectory(prefix="hypo_chip_smoke_") as tmp:
-        launches = phase_e2e(tmp)
+        paths = {"full_4mbp": phase_e2e(tmp)}
+        paths["exact_1mbp_hybrid"], paths["full_1mbp_hybrid"] = \
+            phase_exact_e2e(tmp)
+        paths["no_native_200kbp_hybrid"] = phase_no_native(tmp)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
     cons = {k: {f: v[f] for f in ("ms", "plain_ms", "max_abs_err")}
             for k, v in cons.items()}
 
-    def entry(name, source, replaces, launches, shape, by_shape):
-        # ms / plain_ms at the class-0 shape; every shape under "shapes"
-        return dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=launches,
-                    max_abs_err=max(v["max_abs_err"]
-                                    for v in by_shape.values()),
+    def entry(name, key, replaces, path, shape, by_shape):
+        # launches on ``path`` (every path's under "launches_by_path");
+        # ms / plain_ms at ``shape`` (every shape under "shapes")
+        return dict(name=name, route="cuda",
+                    source=f"hypo_tpu_torch/csrc/{key}.cu",
+                    replaces=replaces, launches=paths[path][key],
+                    path=path, max_abs_err=max(v["max_abs_err"]
+                                               for v in by_shape.values()),
                     ms=by_shape[shape]["ms"],
                     plain_ms=by_shape[shape]["plain_ms"], shape=shape,
-                    shapes=by_shape)
+                    shapes=by_shape,
+                    launches_by_path={p: c[key] for p, c in paths.items()})
 
     kernels = [
-        entry("poa_dp", "hypo_tpu_torch/csrc/poa_dp.cu",
-              "hypo_tpu/poa/pallas_poa.py:259", launches["poa_dp"],
-              "class0_multi", dp),
-        entry("heaviest_bundle", "hypo_tpu_torch/csrc/consensus.cu",
-              "hypo_tpu/poa/pallas_consensus.py:191", launches["consensus"],
+        entry("poa_dp", "poa_dp", "hypo_tpu/poa/pallas_poa.py:259",
+              "full_4mbp", "class0_multi", {**dp, **exact_dp}),
+        entry("poa_tb", "poa_tb",
+              "hypo_tpu/poa/jax_poa.py:85-116 (XLA, no Pallas kernel)",
+              "exact_1mbp_hybrid", "exact_N64_L64_P1", exact_tb),
+        entry("heaviest_bundle", "consensus",
+              "hypo_tpu/poa/pallas_consensus.py:191", "full_4mbp",
               "class0", cons),
     ]
     print(card)

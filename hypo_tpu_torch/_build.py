@@ -5,6 +5,7 @@ with ``nvcc`` for Hopper (sm_90a) into ``_build/lib<name>.so``, then
 loaded with ctypes — the pattern hypo_tpu.native.host_api uses for its
 g++ libraries.  A library is rebuilt when its source is newer.  A
 failed build raises with the compiler's output: there is no fallback.
+Different libraries may be built from several threads at once.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()                      # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}    # one build at a time each
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds, ptxas/compiler output) of builds made by this process
 build_log: Dict[str, tuple] = {}
@@ -56,6 +58,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if missing or
     older than its source."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -3,9 +3,20 @@ with ``--device-poa`` running window consensus on the CUDA device.
 
     python -m hypo_tpu_torch.cli -r reads.fq.gz -d draft.fa -b sr.bam \\
         -c 30 -s 4m -o polished.fa -t 8 --device-poa
+    python -m hypo_tpu_torch.cli ... -B lr.bam --device-poa \\
+        --device-poa-mode exact        # hybrid; LONG windows on the card
+    HYPO_TPU_NO_NATIVE=1 python -m hypo_tpu_torch.cli ... --device-poa
 
-Not ported yet: ``--device-poa-mode exact`` and multi-process runs
-(``--nproc`` > 1, ``--coordinator``); both exit with an error.
+Mode ``full`` (the default) runs each window's whole POA in device
+tiles; mode ``exact`` runs the DP and traceback on the device and the
+graph merges on the host.  Without hypo_tpu's native host library
+(``HYPO_TPU_NO_NATIVE=1``, or a failed build) mode ``full`` takes the
+runner's ``run_windows`` path.  The device runner's stats go to stderr
+as one JSON object: device_rounds, device_aligns, long_aligns and
+host_fallbacks for both modes, plus the tile counts of mode ``full``.
+
+Not ported yet: multi-process runs (``--nproc`` > 1, ``--coordinator``),
+which exit with an error.
 """
 from __future__ import annotations
 
@@ -33,7 +44,7 @@ def run(argv: Optional[List[str]] = None) -> Polisher:
           file=sys.stderr)
     p = polish(flags)
     if p.device_runner is not None:
-        print(f"[hypo_tpu_torch] device POA stats: "
+        print(f"[hypo_tpu_torch] device POA stats ({flags.device_poa_mode}): "
               f"{json.dumps(p.device_runner.stats)}", file=sys.stderr)
     return p
 

@@ -3,18 +3,23 @@
 ``Polisher`` is hypo_tpu's orchestrator (hypo_tpu.pipeline.polish,
 jax-free) with its two device hooks replaced: ``_resolve_device_poa``
 (auto keeps the host engine; the JAX package's auto needed a TPU and an
-opt-in) and ``_make_device_runner`` (the tile runner of
-poa.full_runner on a CUDA device).  Asking for the device path without
-CUDA exits with an error: nothing moves to the CPU quietly.
+opt-in) and ``_make_device_runner``: mode ``full`` builds the tile
+runner of poa.full_runner, mode ``exact`` the runner of poa.batch, both
+on a CUDA device.  The inherited ``_polish_batch`` then drives the full
+runner through ``run_polish_batch`` when hypo_tpu's native host library
+is available and through ``run_windows`` when it is not, and the exact
+runner always through ``run_windows``, as in the JAX package.  Asking
+for the device path without CUDA exits with an error: nothing moves to
+the CPU quietly.
 """
 from __future__ import annotations
 
 import torch
 
 from hypo_tpu.config import InputFlags
-from hypo_tpu.native import host_api
 from hypo_tpu.pipeline import polish as _host_polish
 
+from ..poa.batch import DeviceConsensusRunner
 from ..poa.full_runner import FullDeviceRunner
 
 
@@ -27,7 +32,7 @@ def cuda_device() -> torch.device:
 
 
 class Polisher(_host_polish.Polisher):
-    """``device`` is where the tile program computes: None means the
+    """``device`` is where the device runner computes: None means the
     current CUDA device; tests pass torch.device("cpu") to run the
     kernels' plain versions."""
 
@@ -43,15 +48,12 @@ class Polisher(_host_polish.Polisher):
         f = self.flags
         if not f.use_device_poa:
             return None
-        if f.device_poa_mode != "full":
-            raise SystemExit(f"hypo_tpu_torch: --device-poa-mode "
-                             f"{f.device_poa_mode} is not ported; use full")
         device = self.device if self.device is not None else cuda_device()
-        if not host_api.available():
-            raise SystemExit("hypo_tpu_torch: the device path needs the "
-                             "native host library (hypo_tpu/native), which "
-                             "failed to build or load")
-        runner = FullDeviceRunner(f.score_params, device, threads=f.threads)
+        if f.device_poa_mode == "full":
+            runner = FullDeviceRunner(f.score_params, device,
+                                      threads=f.threads)
+        else:
+            runner = DeviceConsensusRunner(f.score_params, device)
         runner.warm()
         return runner
 

@@ -15,7 +15,7 @@ from .. import _build
 from .dp import poa_dp_batch_ref
 
 _P_MAX = 8          # predecessor slots the kernel keeps in registers
-_MAX_THREADS = 1024
+_MAX_COLS = 2048    # columns L + 1: up to 2 per thread, 1024 threads
 
 
 def _load():
@@ -53,9 +53,9 @@ def poa_dp_batch(node_code, pred_rows, pred_cnt, is_end, n_nodes, arm,
                                 P=P, m=m, n=n, g=g)
     if dev.type != "cuda":
         raise ValueError(f"poa_dp_batch: no kernel for device {dev}")
-    if not 1 <= P <= _P_MAX or L + 1 > _MAX_THREADS:
+    if not 1 <= P <= _P_MAX or L + 1 > _MAX_COLS:
         raise ValueError(f"poa_dp_batch: kernel needs 1 <= P <= {_P_MAX} "
-                         f"and L < {_MAX_THREADS} (P={P}, L={L})")
+                         f"and L < {_MAX_COLS} (P={P}, L={L})")
     lib = _load()
     bp = torch.empty((B, N + 1, L + 1), dtype=torch.int8, device=dev)
     max_row = torch.empty((B,), dtype=i32, device=dev)

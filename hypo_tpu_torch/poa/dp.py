@@ -1,22 +1,82 @@
-"""Plain PyTorch graph-vs-arm DP: the reference version of the CUDA DP
-kernel (csrc/poa_dp.cu, wrapped by poa.cuda_poa.poa_dp_batch).
+"""Plain PyTorch graph-vs-arm DP and traceback: the reference versions
+of the CUDA kernels csrc/poa_dp.cu (poa.cuda_poa.poa_dp_batch) and
+csrc/poa_tb.cu (poa.cuda_tb.poa_tb_batch), plus the host-side helpers
+of exact mode (hypo_tpu.poa.jax_poa:40-41, 184-191, 231-254, copied
+because jax_poa imports jax).
 
 Counterpart of hypo_tpu.poa.jax_poa.poa_dp_batch / _dp_one (:44-65,
-122-181) and hypo_tpu.poa.device_full._dp (:196-244).  The vmap over
-windows is the batch dimension written out; the lax.scan over rows is
-a Python loop that stops at the largest graph of the batch.
+122-181), jax_poa.poa_dp_tb_batch (:68-119) and
+hypo_tpu.poa.device_full._dp (:196-244).  The vmap over windows is the
+batch dimension written out; the lax.scan over rows is a Python loop
+that stops at the largest graph of the batch, and the traceback's
+while_loop a lockstep loop over the batch.
 
 Cells are int32 with the NEG16 sentinel of the Pallas kernel, so every
-reachable cell equals the JAX versions' (int16 in jax_poa, int32 with
-NEG = -2**30 in device_full._dp): a sentinel-derived value never ties a
-reachable one, because |cell| <= |g| * (N + L) < 16384 for both shape
-classes.
+cell equals the JAX versions' (int16 in jax_poa, int32 with NEG = -2**30
+in device_full._dp).  For the tile classes a sentinel-derived value
+never ties a reachable one, because |cell| <= |g| * (N + L) < 16384.
+Exact mode's largest short-score bucket (N = L = 1024, |g| = 8) reaches
+that bound; there int16 still cannot wrap (every cell is >= the
+all-gap path's -16384), so the port and jax_poa agree cell for cell
+(tests/test_torch_tb.py holds them equal at that bucket).
 """
 from __future__ import annotations
 
+from typing import List, Tuple
+
+import numpy as np
 import torch
 
-from . import LOV, NEG16, ROV
+from . import GLOBAL_CODE, LOV, NEG16, ROV
+
+# ASCII byte -> global code; 255 marks a byte outside the alphabet
+_GLOBAL_LUT = np.full(256, 255, np.uint8)
+for _c, _v in GLOBAL_CODE.items():
+    _GLOBAL_LUT[ord(_c)] = _v
+
+
+def encode_global(seq: str) -> np.ndarray:
+    """Global codes (A C G T J O -> 0..5) of ``seq`` as int32; raises
+    KeyError on any other letter, as jax_poa.encode_global does."""
+    codes = _GLOBAL_LUT[np.frombuffer(seq.encode("latin1"), np.uint8)]
+    if len(codes) and codes.max() == 255:
+        raise KeyError(next(c for c in seq if c not in GLOBAL_CODE))
+    return codes.astype(np.int32)
+
+
+def alignment_from_steps(ti: np.ndarray, tj: np.ndarray, steps: int,
+                         rank_ids: np.ndarray) -> List[Tuple[int, int]]:
+    """Convert a device traceback (backward order, ranks) into the
+    alignment pair list (forward order, node ids)."""
+    ti = ti[:steps][::-1].astype(np.int64)
+    tj = tj[:steps][::-1].astype(np.int64)
+    nodes = np.where(ti < 0, -1, rank_ids[np.maximum(ti, 0)])
+    return list(zip(nodes.tolist(), tj.tolist()))
+
+
+def extract_graph_arrays(graph, N: int, P: int):
+    """Flatten a host ``hypo_tpu.poa.Graph`` into the fixed-shape arrays
+    the DP consumes: (node_code, pred_rows, pred_cnt, is_end, n_nodes),
+    or None if the graph exceeds the (N, P) caps."""
+    nn = len(graph.rank_to_node_id)
+    if nn > N:
+        return None
+    rank_of = {nid: r for r, nid in enumerate(graph.rank_to_node_id)}
+    node_code = np.zeros(N, dtype=np.int32)
+    pred_rows = np.zeros((N, P), dtype=np.int32)
+    pred_cnt = np.ones(N, dtype=np.int32)
+    is_end = np.zeros(N, dtype=bool)
+    for r, nid in enumerate(graph.rank_to_node_id):
+        node = graph.nodes[nid]
+        node_code[r] = GLOBAL_CODE[graph.decoder[node.code]]
+        if node.in_edges:
+            if len(node.in_edges) > P:
+                return None
+            pred_cnt[r] = len(node.in_edges)
+            for p, e in enumerate(node.in_edges):
+                pred_rows[r, p] = rank_of[e.begin] + 1
+        is_end[r] = not node.out_edges
+    return node_code, pred_rows, pred_cnt, is_end, nn
 
 
 def poa_dp_batch_ref(node_code, pred_rows, pred_cnt, is_end, n_nodes, arm,
@@ -82,3 +142,69 @@ def poa_dp_batch_ref(node_code, pred_rows, pred_cnt, is_end, n_nodes, arm,
     masked = torch.where(elig, at_L, NEG16)
     max_row = (masked.argmax(dim=1) + 1).to(i32)
     return bp, max_row
+
+
+# the lockstep traceback checks "every window stopped" (a host sync)
+# only every this many steps; extra steps are no-ops for stopped windows
+_TB_CHECK_EVERY = 32
+
+
+def poa_tb_batch_ref(bp, pred_rows, max_row, arm_len, mode, *, N: int,
+                     L: int, P: int):
+    """Backpointer walk of every window, from (max_row, arm_len) to the
+    stop cell: (0, 0) for NW / LOV, row 0 or column 0 for ROV.  Row 0
+    moves only horizontally; a diagonal move emits (i-1, j-1), a
+    vertical one (i-1, -1), a horizontal one (-1, j-1).
+
+    bp int8 [B,N+1,L+1] and max_row [B] as poa_dp_batch returns them;
+    pred_rows [B,N,P], arm_len [B], mode [B] i32.  Returns (ti int16
+    [B,S], tj int16 [B,S], steps int32 [B]), S = N + L + 1: the emitted
+    graph rank (or -1) and query index (or -1) of each step in backward
+    order, -2 past ``steps``.  Every index read is clamped into its
+    array, so no input reads out of bounds."""
+    B = bp.shape[0]
+    dev = bp.device
+    S = N + L + 1
+    W = L + 1
+    ti = torch.full((B, S), -2, dtype=torch.int16, device=dev)
+    tj = torch.full((B, S), -2, dtype=torch.int16, device=dev)
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    bpf = bp.reshape(B, -1)
+    prf = pred_rows.reshape(B, -1)
+    rov = mode == ROV
+    i = max_row.clamp(0, N).long()
+    j = arm_len.clamp(0, L).long()
+    for t in range(S):
+        live = ~torch.where(rov, (i == 0) | (j == 0), (i == 0) & (j == 0))
+        if t % _TB_CHECK_EVERY == 0 and not bool(live.any()):
+            break
+        code = bpf.gather(1, (i * W + j.clamp(0, L))[:, None])[:, 0].long()
+        is_vert = (code >= P) & (code < 2 * P)
+        is_horiz = code == 2 * P
+        pidx = torch.where(code < P, code, code - P).clamp(0, P - 1)
+        pred = prf.gather(1, ((i - 1).clamp(min=0) * P + pidx)[:, None])
+        pred = pred[:, 0].long().clamp(0, N)
+        top = i == 0
+        prev_i = torch.where(top, 0, torch.where(is_horiz, i, pred))
+        prev_j = torch.where(top | ~is_vert, j - 1, j)
+        er = torch.where(prev_i == i, -1, i - 1)
+        ej = torch.where(prev_j == j, -1, j - 1)
+        ti[:, t] = torch.where(live, er, -2).to(torch.int16)
+        tj[:, t] = torch.where(live, ej, -2).to(torch.int16)
+        steps += live.to(torch.int32)
+        i = torch.where(live, prev_i, i)
+        j = torch.where(live, prev_j, j)
+    return ti, tj, steps
+
+
+def poa_dp_tb_batch_ref(node_code, pred_rows, pred_cnt, is_end, n_nodes,
+                        arm, arm_len, mode, *, N: int, L: int, P: int,
+                        m: int, n: int, g: int):
+    """The DP then the traceback, plainly (jax_poa.poa_dp_tb_batch):
+    returns (ti, tj, steps, max_row)."""
+    bp, max_row = poa_dp_batch_ref(node_code, pred_rows, pred_cnt, is_end,
+                                   n_nodes, arm, arm_len, mode, N=N, L=L,
+                                   P=P, m=m, n=n, g=g)
+    ti, tj, steps = poa_tb_batch_ref(bp, pred_rows, max_row, arm_len, mode,
+                                     N=N, L=L, P=P)
+    return ti, tj, steps, max_row

@@ -1,31 +1,44 @@
 """Window consensus through the tile program on a PyTorch device: the
-port of hypo_tpu.poa.full_runner.FullDeviceRunner's native tile path
-(run_polish_batch).
+port of hypo_tpu.poa.full_runner.FullDeviceRunner (``--device-poa``,
+mode ``full``), with both of its paths.
 
-The host side is hypo_tpu's, unchanged: the native job builder
-(host_api.tile_jobs, via host_runner.build_batch_jobs) settles trivial
-windows and deduplicates arms, host_api.tile_pack packs B windows into
-a tile, host_api.tile_finalize unpacks the tile's output.  Each tile is
-one call of the tile program (poa.device_full.build_tile_program) on
-this runner's device, read back at once.
+``run_polish_batch`` (the native tile path): hypo_tpu's native job
+builder (host_api.tile_jobs, via host_runner.build_batch_jobs) settles
+trivial windows and deduplicates arms, host_api.tile_pack packs B
+windows into a tile, host_api.tile_finalize unpacks the tile's output.
 
-LONG windows (wtype != 0), windows that fit no shape class and windows
-that overflow a class cap on the device go to the host engine
-(engine.ConsensusEngine), as in the JAX package: that routing is part
-of the algorithm.  Both are counted in ``stats``.
+``run_windows`` (the path without the native host library, which the
+orchestrator takes when host_api.available() is false): the Python job
+model of poa.batch, with arms deduplicated (``_dedup``) and packed into
+tiles here; the tile program computes every tile on the device as
+before.  Long windows that reach it run their curated second round as a
+new job.
+
+Each tile is one call of the tile program (poa.device_full.
+build_tile_program) on this runner's device.  LONG windows (wtype != 0),
+windows that fit no shape class and windows that overflow a class cap
+on the device go to the host engine (engine.ConsensusEngine), as in the
+JAX package: that routing is part of the algorithm.  ``stats`` counts
+them: ``run_polish_batch`` puts LONG windows under host_long_windows and
+the rest under host_fallbacks (the JAX package adds both to
+host_long_windows); ``run_windows`` counts as the JAX package does,
+LONG windows under host_long_windows and each job finished on the host
+aligner under host_fallbacks.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from hypo_tpu.config import ScoreParams
 from hypo_tpu.native import host_api
-from hypo_tpu.poa.engine import ConsensusEngine
+from hypo_tpu.poa.engine import CURATE_THRESH, ConsensusEngine
 from hypo_tpu.poa.host_runner import build_batch_jobs, materialize_arms_bulk
 
+from . import GLOBAL_ALPHABET, GLOBAL_CODE, NW
+from .batch import DeviceConsensusRunner, _Job
 from .device_full import build_tile_program
 
 # shape classes: (L arm-length cap, N node/column cap, K distinct-arm
@@ -40,21 +53,47 @@ P_FULL = 8
 _CPU_TILE_B = 64
 
 
-class FullDeviceRunner:
-    """run_polish_batch-compatible device engine over native tile jobs,
-    computing on ``device`` (a CUDA device; CPU tensors in tests)."""
+def _dedup(seqs) -> List[Tuple[str, int, int]]:
+    """Collapse identical (sequence, mode) arms into one weighted entry
+    at the first occurrence; merging one arm with weight w is exactly
+    merging w copies."""
+    out: Dict[Tuple[str, int], int] = {}
+    for s, md in seqs:
+        out[(s, md)] = out.get((s, md), 0) + 1
+    return [(s, md, w) for (s, md), w in out.items()]
+
+
+# ASCII byte -> global code for packing tiles; a letter outside the
+# alphabet (an N from the reads or the draft) packs as 0, as in the JAX
+# package
+_CODE_LUT = np.zeros(256, np.int8)
+for _c, _v in GLOBAL_CODE.items():
+    _CODE_LUT[ord(_c)] = _v
+
+_ALPHA_LUT = np.frombuffer(GLOBAL_ALPHABET.encode(), np.uint8).copy()
+
+
+def _decode(codes: np.ndarray) -> str:
+    return _ALPHA_LUT[codes].tobytes().decode()
+
+
+class FullDeviceRunner(DeviceConsensusRunner):
+    """Device engine over tiles, computing on ``device`` (a CUDA device;
+    CPU tensors in tests): the same job model as DeviceConsensusRunner,
+    with each window's whole POA and consensus on the device."""
+
+    KERNELS = ("poa_dp", "consensus")
 
     def __init__(self, sp: ScoreParams, device, threads: int = 0):
-        self.short_scores = (sp.sr_match, sp.sr_mismatch, sp.sr_gap)
-        self.device = torch.device(device)
+        super().__init__(sp, device)
         self.threads = threads
         self.host_engine = ConsensusEngine(sp)
-        self.stats = {"full_dispatches": 0, "full_windows": 0,
-                      "full_overflows": 0, "trivial_windows": 0,
-                      "host_long_windows": 0, "host_fallbacks": 0,
-                      # per shape class (index into CLASSES)
-                      "class_tiles": [0] * len(CLASSES),
-                      "class_windows": [0] * len(CLASSES)}
+        self.stats.update({"full_dispatches": 0, "full_windows": 0,
+                           "full_overflows": 0, "trivial_windows": 0,
+                           "host_long_windows": 0,
+                           # per shape class (index into CLASSES)
+                           "class_tiles": [0] * len(CLASSES),
+                           "class_windows": [0] * len(CLASSES)})
 
     @staticmethod
     def supports_native_tiles() -> bool:
@@ -67,19 +106,17 @@ class FullDeviceRunner:
             A = 2 * B * K
         return L, N, K, B, A
 
-    def _program(self, ci: int):
+    def _program(self, ci: int, scores):
         L, N, K, B, A = self._class_shape(ci)
-        m, n, g = self.short_scores
+        m, n, g = scores
         return build_tile_program(N=N, L=L, K=K, P=P_FULL, m=m, n=n, g=g,
                                   B=B, A=A, device=self.device)
 
-    def warm(self) -> None:
-        """Build (or load) both kernels on a CUDA device, so the first
-        tile pays no build cost.  Build errors propagate."""
-        if self.device.type == "cuda":
-            from .. import _build
-            _build.load("poa_dp")
-            _build.load("consensus")
+    def _count_tile(self, ci: int, cnt: int) -> None:
+        self.stats["full_dispatches"] += 1
+        self.stats["full_windows"] += cnt
+        self.stats["class_tiles"][ci] += 1
+        self.stats["class_windows"][ci] += cnt
 
     def run_polish_batch(self, contigs) -> int:
         jobs, job_refs, fallback, host_windows, count = build_batch_jobs(
@@ -125,7 +162,7 @@ class FullDeviceRunner:
                 idx[np.lexsort((-jobs.job_maxlen[idx],
                                 -jobs.job_next[idx]))], np.int64)
             L, N, K, B, A = self._class_shape(ci)
-            tile_fn = self._program(ci)
+            tile_fn = self._program(ci, self.short_scores)
             lo = 0
             while lo < len(order):
                 hi, pool, plen, idxt, amode, aw, narms, th, row_of = \
@@ -136,10 +173,7 @@ class FullDeviceRunner:
                 cnt = hi - lo
                 out, out_len = host_api.tile_finalize(
                     packed, row_of[:cnt], cnt, 0, N)
-                self.stats["full_dispatches"] += 1
-                self.stats["full_windows"] += cnt
-                self.stats["class_tiles"][ci] += 1
-                self.stats["class_windows"][ci] += cnt
+                self._count_tile(ci, cnt)
                 for t in range(cnt):
                     ctg, wi = job_refs[order[lo + t]]
                     if out_len[t] < 0:
@@ -150,3 +184,200 @@ class FullDeviceRunner:
                             out[t, :out_len[t]].tobytes().decode("latin1")
                 lo = hi
         return left
+
+    # -- the path without the native host library ----------------------------
+    @staticmethod
+    def _trivial(job: _Job) -> bool:
+        """One distinct (arm, NW) => consensus is that arm, exactly
+        (single-sequence chain graph; support = total weight >= any
+        curate threshold)."""
+        return len(job.ext) == 1 and job.ext[0][1] == NW
+
+    def _finish_trivial(self, job: _Job) -> Optional[_Job]:
+        s = job.ext[0][0]
+        w = job.window
+        if job.kind == "short":
+            w.consensus = s[1:-1]   # strip J/O markers (th = 0)
+            return None
+        # long windows curate at floor(0.4 * num_internal); every base's
+        # support is the total arm weight, so it is all-or-nothing
+        curated = s if job.ext[0][2] >= self._curate_threshold(job) else ""
+        w.consensus = curated
+        if job.kind == "long1":
+            return self._build_long_job(w, backbone=curated, kind="long2")
+        return None
+
+    def _class_for(self, job: _Job) -> Optional[int]:
+        if len(job.ext) > CLASSES[-1][2]:
+            return None
+        maxl = max(len(s) for s, _m, _w in job.ext)
+        need_n = max(2 * maxl, maxl + 32)
+        for ci, (L, N, K, _B, _A) in enumerate(CLASSES):
+            if maxl <= L and need_n <= N and len(job.ext) <= K:
+                return ci
+        return None
+
+    @staticmethod
+    def _curate_threshold(job: _Job) -> int:
+        if job.kind == "short":
+            return 0
+        return math.floor(job.window.num_internal * CURATE_THRESH)
+
+    def run_windows(self, windows) -> int:
+        """Consensus for ``windows`` (arms materialized on each window):
+        LONG windows on the host engine, trivial ones on the host, the
+        rest in waves of device tiles, all tiles of a wave dispatched
+        before the first is read back."""
+        jobs: List[_Job] = []
+        host_long = []
+        count = 0
+        for w in windows:
+            if w is None:
+                continue
+            count += 1
+            if w.wtype != 0:
+                host_long.append(w)
+                continue
+            non_empty = w.num_internal + w.num_pre + w.num_suf
+            if w.num_empty <= non_empty and non_empty >= 2:
+                # identical-arm shortcut before decoding / dedup, the
+                # majority case; the same condition _trivial would find
+                tc = self.host_engine._trivial_consensus(w)
+                if tc is not None:
+                    w.consensus = tc
+                    self.stats["trivial_windows"] += 1
+                    continue
+            j = self._build_job(w)
+            if j is not None:
+                jobs.append(j)
+        if host_long:
+            self.stats["host_long_windows"] += len(host_long)
+            self.host_engine.generate_consensus_batch(host_long,
+                                                      self.threads)
+        active = jobs
+        while active:
+            nxt: List[_Job] = []
+            groups: Dict[tuple, List[_Job]] = {}
+            for job in active:
+                job.ext = _dedup(job.seqs)
+                if self._trivial(job):
+                    self.stats["trivial_windows"] += 1
+                    spawned = self._finish_trivial(job)
+                    if spawned is not None:
+                        nxt.append(spawned)
+                    continue
+                ci = self._class_for(job)
+                if ci is None:
+                    spawned = self._host_finish(job)
+                    if spawned is not None:
+                        nxt.append(spawned)
+                    continue
+                groups.setdefault((ci, job.scores), []).append(job)
+            handles = []
+            for (ci, scores), grp in sorted(groups.items(),
+                                            key=lambda kv: kv[0]):
+                grp.sort(key=lambda j: (-len(j.ext),
+                                        -max(len(s) for s, _m, _w
+                                             in j.ext)))
+                lo = 0
+                while lo < len(grp):
+                    tile, hi = self._take_tile(grp, lo, ci)
+                    handles.append(
+                        (tile, self._dispatch_tile(tile, ci, scores)))
+                    lo = hi
+            for tile, handle in handles:
+                nxt.extend(self._collect_full(tile, handle))
+            active = nxt
+        return count
+
+    def _take_tile(self, grp: List[_Job], lo: int, ci: int):
+        """Take as many jobs from grp[lo:] as fit one tile's window and
+        arm-pool capacities."""
+        L, N, K, B, A = self._class_shape(ci)
+        pool_used = 0
+        seen: Dict[str, int] = {}
+        hi = lo
+        while hi < len(grp) and hi - lo < B:
+            need = sum(1 for s, _m, _w in grp[hi].ext if s not in seen)
+            if pool_used + need > A:
+                break
+            for s, _m, _w in grp[hi].ext:
+                if s not in seen:
+                    seen[s] = pool_used
+                    pool_used += 1
+            hi += 1
+        return grp[lo:hi], hi
+
+    def _dispatch_tile(self, grp: List[_Job], ci: int, scores):
+        """Pack one tile (deduplicated arm pool + per-window index table,
+        window j in row j) and launch it; returns the tile program's
+        output tensor, not yet read back."""
+        L, N, K, B, A = self._class_shape(ci)
+        tile_fn = self._program(ci, scores)
+        pool_idx: Dict[str, int] = {}
+        strs: List[str] = []
+        idxt = np.full((B, K), -1, np.int32)
+        amode = np.zeros((B, K), np.int8)
+        aw = np.zeros((B, K), np.int32)
+        narms = np.zeros(B, np.int32)
+        th = np.zeros(B, np.int32)
+        for b, job in enumerate(grp):
+            narms[b] = len(job.ext)
+            th[b] = self._curate_threshold(job)
+            for k, (s, md, w) in enumerate(job.ext):
+                r = pool_idx.get(s)
+                if r is None:
+                    r = pool_idx[s] = len(strs)
+                    strs.append(s)
+                idxt[b, k] = r
+                amode[b, k] = md
+                aw[b, k] = w
+        pool = np.zeros((A, L), np.int8)
+        plen = np.zeros(A, np.int32)
+        if strs:
+            lens = np.fromiter((len(s) for s in strs), np.int64,
+                               len(strs))
+            codes = _CODE_LUT[np.frombuffer("".join(strs).encode(),
+                                            np.uint8)]
+            plen[:len(strs)] = lens
+            starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
+            within = np.arange(len(codes)) - np.repeat(starts, lens)
+            dst = np.repeat(np.arange(len(strs)) * L, lens) + within
+            pool.reshape(-1)[dst] = codes
+        self._count_tile(ci, len(grp))
+        return tile_fn(pool, plen, idxt, amode, aw, narms, th)
+
+    def _collect_full(self, grp: List[_Job], handle) -> List[_Job]:
+        packed = handle.cpu().numpy()           # one transfer
+        half = packed.shape[1] - 4
+        nib = packed[:, :half].view(np.uint8)
+        codes = np.empty((packed.shape[0], 2 * half), np.uint8)
+        codes[:, 0::2] = nib & 0xF
+        codes[:, 1::2] = nib >> 4
+        clen = (packed[:, half].view(np.uint8).astype(np.int32)
+                | (packed[:, half + 1].view(np.uint8).astype(np.int32)
+                   << 8))
+        ovf = packed[:, half + 2] != 0
+        out: List[_Job] = []
+        for b, job in enumerate(grp):
+            if ovf[b]:
+                self.stats["full_overflows"] += 1
+                spawned = self._host_finish(job)
+            else:
+                spawned = self._finalize_full(job, codes[b, :clen[b]])
+            if spawned is not None:
+                out.append(spawned)
+        return out
+
+    def _finalize_full(self, job: _Job,
+                       codes: np.ndarray) -> Optional[_Job]:
+        """codes are already curated on device (short: th=0 keeps all)."""
+        w = job.window
+        cons = _decode(codes)
+        if job.kind == "short":
+            w.consensus = cons[1:-1]   # strip J/O markers
+            return None
+        w.consensus = cons
+        if job.kind == "long1":
+            return self._build_long_job(w, backbone=cons, kind="long2")
+        return None

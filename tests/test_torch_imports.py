@@ -24,7 +24,8 @@ def _run(args, **kw):
 def test_port_imports_no_jax():
     code = ("import sys, hypo_tpu_torch, hypo_tpu_torch.cli, "
             "hypo_tpu_torch.poa.full_runner, hypo_tpu_torch.pipeline.polish,"
-            " hypo_tpu_torch.state; "
+            " hypo_tpu_torch.state, hypo_tpu_torch.poa.batch, "
+            "hypo_tpu_torch.poa.cuda_tb; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib')))")
     r = _run(["-c", code])
@@ -55,7 +56,7 @@ def cli_inputs(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["--device-poa"], "CUDA"),
-    (["--device-poa", "--device-poa-mode", "exact"], "not ported"),
+    (["--device-poa", "--device-poa-mode", "exact"], "CUDA"),
     (["--nproc", "2"], "not ported"),
 ])
 def test_cli_refuses_what_it_cannot_run(cli_inputs, extra, message):
