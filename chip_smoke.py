@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (hypo_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--dp-baseline OLD_poa_dp.cu]
 
 Phases, each raising on failure (so the script exits non-zero and never
 prints its last line):
   1. environment: torch / CUDA / nvcc versions, the card's name and
      power limit; fails without CUDA;
-  2. build the three CUDA kernels with nvcc, one nvcc each, all started
-     together (timed);
+  2. build: the three CUDA kernels with nvcc and the port's three native
+     host libraries with g++, one compiler each, all started together
+     (timed; each kernel's registers, spills and shared memory as
+     ``-Xptxas -v`` prints them);
   3. DP kernel vs its plain PyTorch version on the card, at the class-0
      (B=2048, N=256, L=126, P=8; a chain and a multi-predecessor bucket)
      and class-1 (B=256, N=1024, L=510, P=8) tile shapes, mixed
@@ -16,34 +18,44 @@ prints its last line):
      then the DP and traceback kernels vs their plain versions at exact
      mode's buckets (N 64, L 64, P 1, short scores, B=4096; N 1024,
      L 512, P 4 and N 1024, L 1024, P 4, long scores, B=64 and 8):
-     exact equality of bp, max_row, ti, tj and steps, median times;
+     exact equality of bp, max_row, ti, tj and steps, median times.
+     Each kernel's bound at each shape, from this run's inputs: the
+     larger of the bytes it must move over 3.35 TB/s and its int32
+     operations over 132 SMs x 64 lanes x the card's clocks.max.sm.
+     ``--dp-baseline`` also times an earlier DP kernel source at all six
+     shapes, in turns with this one (baseline, this, this, baseline);
   4. consensus kernel vs its plain version on the rank arrays of a real
      tile of each shape class (class 0: B=2048, N=256, L=126; class 1:
      B=256, N=1024, L=510; random windows merged by the port's arm
      steps): exact equality, median times;
   5. each tile through the tile program vs the NumPy spec
-     hypo_tpu.poa.colpoa_ref.ColPoa on every window without overflow
-     (at least 256 / 128 of them); both kernels' launch counters > 0;
-     then where the class-0 tile's time goes: per-step times with a
-     sync around each call, and the device's busy share in one
-     torch.profiler trace of the same tile;
-  6. end to end at E. coli scale: a 4 Mbp / 30x simulation polished by
-     ``hypo_tpu_torch.cli --device-poa`` (in this process, kernel launch
-     counters reset just before) and by the host engine
-     (``hypo_tpu.cli --no-device-poa``, a subprocess): identical FASTA
-     md5, stage times, QV before/after;
+     hypo_tpu_torch.poa.colpoa_ref.ColPoa on every window without
+     overflow (at least 256 / 128 of them); both kernels' launch
+     counters > 0; how many rows the DP kernel keeps in its int16
+     device-memory copy (rows read from beyond its ring) over the
+     tile's arm steps; then where the class-0 tile's time goes: per-step
+     times with a sync around each call, and the device's busy share in
+     one torch.profiler trace of the same tile;
+  6. end to end at E. coli scale: a 4 Mbp / 30x simulation
+     (``python -m hypo_tpu_torch.sim``) polished by ``hypo_tpu_torch.cli
+     --device-poa`` (in this process, kernel launch counters reset just
+     before) and by the port's host engine (``hypo_tpu_torch.cli
+     --no-device-poa``, a subprocess): both FASTA md5s equal the md5
+     pinned from hypo_tpu's host engine on the same input; stage times,
+     QV before/after;
   7. exact mode end to end: a 1 Mbp hybrid simulation (30x short, 25x
      long reads, short-read dropout over 3% of the genome) polished by
      ``hypo_tpu_torch.cli -B lr.bam --device-poa --device-poa-mode
-     exact`` (LONG windows on the card) and, on the same input, in mode
-     full; both md5 equal to the host engine's;
-  8. full mode without hypo_tpu's native host library
-     (``HYPO_TPU_NO_NATIVE=1``: pure-Python host stages and the runner's
-     run_windows path) on a 200 kbp hybrid simulation: md5 equal to the
-     native host engine's.
+     exact`` (LONG windows on the card; calls, windows and launches of
+     kernels 1 and 3 per (N, L, P) bucket) and, on the same input, in
+     mode full; md5s as in 6;
+  8. full mode without the native host library (``HYPO_TPU_NO_NATIVE=1``:
+     pure-Python host stages and the runner's run_windows path) on a
+     200 kbp hybrid simulation; md5s as in 6.
 Phases 6-8 run the port in this process, every launch counter set to 0
-just before each run and read just after.
-Tolerance everywhere: 0 (every compared value is an integer).
+just before each run and read just after.  Nothing of hypo_tpu or jax
+is imported or run.  Tolerance everywhere: 0 (every compared value is
+an integer).
 
 The last lines are the card (nvidia-smi name, power limit), one JSON
 object describing each kernel, and
@@ -51,6 +63,8 @@ object describing each kernel, and
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 import io
 import json
@@ -69,6 +83,7 @@ from hypo_tpu_torch import _build
 from hypo_tpu_torch.poa import NW, LOV, ROV
 from hypo_tpu_torch.poa import device_full as TF
 from hypo_tpu_torch.poa.cuda_consensus import heaviest_bundle
+from hypo_tpu_torch.poa import cuda_poa
 from hypo_tpu_torch.poa.cuda_poa import poa_dp_batch
 from hypo_tpu_torch.poa.cuda_tb import poa_tb_batch
 from hypo_tpu_torch.poa.dp import poa_dp_batch_ref, poa_tb_batch_ref
@@ -133,19 +148,32 @@ def phase_env() -> str:
 
 # -- 2. build -----------------------------------------------------------------
 
-def phase_build() -> None:
+def phase_build(baseline) -> None:
+    """Every CUDA kernel with nvcc and the three native host libraries
+    with g++, one compiler each, all started together; ``baseline``
+    (a .cu file or None) adds an earlier DP kernel for comparison."""
     from concurrent.futures import ThreadPoolExecutor
+
+    from hypo_tpu_torch.native import api, bam_api, host_api
+    jobs = [(name, _build.load, (name,)) for name in KERNELS]
+    if baseline:
+        jobs.append(("poa_dp_baseline", _build.load,
+                     ("poa_dp_baseline", baseline)))
+    jobs += [(mod.__name__, mod.available, ()) for mod in
+             (host_api, api, bam_api)]
     t0 = time.time()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for f in [pool.submit(_build.load, name) for name in KERNELS]:
-            f.result()
-    log(f"build of {len(KERNELS)} kernels, one nvcc each, all together: "
-        f"{time.time() - t0:.2f} s")
-    for name in KERNELS:
-        secs, out = _build.build_log.get(name, (0.0, "(already built)"))
-        log(f"build {name}: its nvcc ran {secs:.2f} s (concurrently)")
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = [(name, pool.submit(fn, *a)) for name, fn, a in jobs]
+        for name, f in futs:
+            if f.result() is False:
+                raise RuntimeError(f"build of {name} failed")
+    log(f"build of {len(jobs)} libraries ({len(jobs) - 3} nvcc, 3 g++), "
+        f"all together: {time.time() - t0:.2f} s")
+    for name, (secs, out) in sorted(_build.build_log.items()):
+        log(f"build {name}: its compiler ran {secs:.2f} s (concurrently)")
         for line in out.splitlines():
-            if re.search(r"registers|spill|smem|error|warning", line):
+            if re.search(r"entry function|registers|spill|smem|error|"
+                         r"warning", line):
                 log("  " + line.strip())
 
 
@@ -177,7 +205,157 @@ def dp_bucket(rng, B, N, L, P, multi: bool, dev, inactive: float = 0.02):
             i32(nn), i32(arm), i32(al), i32(md))
 
 
-def phase_dp(rng, dev) -> dict:
+def smi_query(field: str) -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={field}",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM peak HBM3 bandwidth
+INT32_LANES = 132 * 64        # SMs x INT32 lanes a clock
+
+
+@functools.lru_cache(maxsize=None)
+def int32_ops_per_s() -> float:
+    return INT32_LANES * float(smi_query("clocks.max.sm")) * 1e6
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time for ``nbytes`` moved and ``ops`` int32 operations:
+    the larger of bytes over HBM rate and ops over the int32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int32_ops_per_s() * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def dp_bound(args, N, L, P) -> dict:
+    """Kernel 1's bound on these inputs: each used input read once (the
+    rows below n_nodes: code, count, end flag and the real predecessor
+    slots; the arm; three scalars), each output written once (bp rows
+    0..n_nodes, max_row); 6p + 3 int32 operations a cell of a row below
+    n_nodes with p real predecessors, p at least 1 (two adds, two maxes
+    and two compares each, then the horizontal gap, its max and the
+    backpointer select); rows past n_nodes cost nothing."""
+    nc, pr, pc, ie, nn, arm, al, md = args
+    rows = (torch.arange(N, device=nn.device)[None, :]
+            < nn[:, None])
+    n_rows = int(rows.sum())
+    n_preds = int(torch.where(rows, pc.clamp(0, P), 0).sum())
+    n_slots = int(torch.where(rows, pc.clamp(1, P), 0).sum())
+    nbytes = (n_rows * (4 + 4 + 1) + 4 * n_preds + arm.numel() * 4
+              + 12 * nn.numel()
+              + int((nn + 1).sum()) * (L + 1) + 4 * nn.numel())
+    ops = (6 * n_slots + 3 * n_rows) * (L + 1)
+    return bound(nbytes, ops)
+
+
+def launch_note(N, L, P) -> str:
+    """Kernel 1's launch at this shape: threads, columns a thread, ring
+    rows and dynamic shared memory (ptxas, in the build phase, sees only
+    the static part)."""
+    per = cuda_poa.columns_per_thread(L)
+    threads = cuda_poa.launch_threads(L)
+    return (f"launch {threads} threads x {per} columns, ring "
+            f"{cuda_poa.RING} rows, "
+            f"{cuda_poa.smem_bytes(threads * per, N, P)} B dynamic shared "
+            f"memory a CTA")
+
+
+class FarRows:
+    """Counts, over the DP calls it wraps, the rows kernel 1 copies to
+    its int16 device-memory scratch: rows 1..N that a row below n_nodes
+    reads through a real predecessor slot from more than RING - 1 rows
+    back (csrc/poa_dp.cu's far[] marks).  The scratch is allocated for
+    all N + 1 rows of every window."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.far = self.rows = self.calls = self.worst = 0
+        self.slots = 0
+
+    def __call__(self, *args, N, P, **kw):
+        nn, pr, pc = args[4], args[1], args[2]
+        B = nn.shape[0]
+        i = torch.arange(N, device=nn.device)
+        real = ((i[None, :] < nn[:, None])[:, :, None]
+                & (torch.arange(P, device=nn.device)[None, None, :]
+                   < pc.clamp(0, P)[:, :, None]))
+        r = pr.clamp(0, N).long()
+        far = real & (r >= 1) & (r <= i[None, :, None] - cuda_poa.RING)
+        marked = torch.zeros((B, N + 1), dtype=torch.int32, device=nn.device)
+        marked.scatter_add_(1, torch.where(far, r, 0).reshape(B, -1),
+                            far.reshape(B, -1).int())
+        per_win = (marked[:, 1:] > 0).sum(1)
+        self.far += int(per_win.sum())
+        self.worst = max(self.worst, int(per_win.max()) if B else 0)
+        self.rows += int(nn.clamp(0, N).sum())
+        self.slots += B * (N + 1)
+        self.calls += 1
+        return self.fn(*args, N=N, P=P, **kw)
+
+    def line(self, name: str) -> str:
+        return (f"{name} tile DP far rows (kept in the int16 device copy): "
+                f"{self.far} of {self.rows} rows over {self.calls} calls "
+                f"({self.far / max(self.rows, 1):.4f}), at most {self.worst} "
+                f"in a window; the copy is allocated for {self.slots} rows "
+                f"({self.far / max(self.slots, 1):.4f} of them written)")
+
+
+def baseline_dp(lib, args, N, L, P, m, n, g):
+    """The earlier DP kernel (int32 H scratch in device memory)."""
+    B = args[0].shape[0]
+    dev = args[0].device
+    bp = torch.empty((B, N + 1, L + 1), dtype=torch.int8, device=dev)
+    mr = torch.empty((B,), dtype=torch.int32, device=dev)
+    H = torch.empty((B, N + 1, L + 1), dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.hypo_poa_dp.restype = ci
+    lib.hypo_poa_dp.argtypes = [vp] * 11 + [ci] * 7 + [vp]
+    p = _build.ptr
+    rc = lib.hypo_poa_dp(*(p(x) for x in args), p(bp), p(mr), p(H), B, N, L,
+                         P, m, n, g, ctypes.c_void_p(
+                             torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, rc, "baseline poa_dp launch")
+    return bp, mr
+
+
+def dp_diff(out, ref, nn, N) -> int:
+    """Max |difference| of (bp on rows <= n_nodes, max_row)."""
+    rows = (torch.arange(N + 1, device=nn.device)[None, :]
+            <= nn[:, None])[:, :, None]
+    bp_diff = ((out[0].int() - ref[0].int()).abs() * rows).amax().item()
+    return max(bp_diff, (out[1] - ref[1]).abs().amax().item())
+
+
+def dp_versions(name, args, kw, ref, baseline) -> dict:
+    """The kernel against the baseline kernel on the same inputs, timed
+    in turns (baseline, kernel, kernel, baseline), the baseline checked
+    against the plain version's output ``ref`` first."""
+    N, L, P = kw["N"], kw["L"], kw["P"]
+    nn = args[4]
+    out = {}
+    if baseline is not None:
+        sc = {k: kw[k] for k in ("m", "n", "g")}
+        diff = dp_diff(baseline_dp(baseline, args, N, L, P, **sc), ref, nn,
+                       N)
+        if diff:
+            raise RuntimeError(f"baseline DP != plain on {name}: {diff}")
+        run_new = lambda: poa_dp_batch(*args, **kw)  # noqa: E731
+        run_old = lambda: baseline_dp(baseline, args, N, L, P,  # noqa
+                                      **sc)
+        t = [cuda_ms(f, inner=KERNEL_INNER)
+             for f in (run_old, run_new, run_new, run_old)]
+        out.update(baseline_ms=(t[0] + t[3]) / 2, new_ms=(t[1] + t[2]) / 2)
+        log(f"DP {name}: baseline kernel {t[0]:.3f} / {t[3]:.3f} ms, this "
+            f"kernel {t[1]:.3f} / {t[2]:.3f} ms (in turns: baseline, this, "
+            f"this, baseline): {out['baseline_ms'] / out['new_ms']:.2f}x")
+    return out
+
+
+def phase_dp(rng, dev, baseline) -> dict:
     P = 8
     res = {}
     for name, (B, N, L), multi in (("class0_chain", (2048, 256, 126), False),
@@ -185,26 +363,27 @@ def phase_dp(rng, dev) -> dict:
                                    ("class1_multi", (256, 1024, 510), True)):
         args = dp_bucket(rng, B, N, L, P, multi, dev)
         kw = dict(N=N, L=L, P=P, **SCORES)
-        bp_k, mr_k = poa_dp_batch(*args, **kw)
-        bp_p, mr_p = poa_dp_batch_ref(*args, **kw)
+        out_k = poa_dp_batch(*args, **kw)
+        ref = poa_dp_batch_ref(*args, **kw)
         torch.cuda.synchronize()
         nn = args[4]
-        rows = (torch.arange(N + 1, device=dev)[None, :]
-                <= nn[:, None])[:, :, None]
-        bp_diff = ((bp_k.int() - bp_p.int()).abs() * rows).amax().item()
-        mr_diff = (mr_k - mr_p).abs().amax().item()
-        if bp_diff or mr_diff:
-            raise RuntimeError(f"DP kernel != plain on {name}: max |bp| "
-                               f"diff {bp_diff}, max |max_row| diff "
-                               f"{mr_diff}")
+        err = dp_diff(out_k, ref, nn, N)
+        if err:
+            raise RuntimeError(f"DP kernel != plain on {name}: max |diff| "
+                               f"{err} (bp rows <= n_nodes, max_row)")
         ms = cuda_ms(lambda: poa_dp_batch(*args, **kw), inner=KERNEL_INNER)
         plain_ms = cuda_ms(lambda: poa_dp_batch_ref(*args, **kw))
         cells = int(nn.sum().item()) * (L + 1)
+        bd = dp_bound(args, N, L, P)
         log(f"DP {name} B={B} N={N} L={L} P={P}: equal (bp rows <= n_nodes,"
             f" max_row); kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} "
-            f"Gcells/s), plain {plain_ms:.3f} ms")
-        res[name] = dict(ms=ms, plain_ms=plain_ms,
-                         max_abs_err=max(bp_diff, mr_diff))
+            f"Gcells/s), plain {plain_ms:.3f} ms; bound {bd['bound_ms']:.4f}"
+            f" ms by {bd['bound_by']} ({bd['bytes'] / 1e6:.1f} MB, "
+            f"{bd['ops'] / 1e9:.3f} Gop): {bd['bound_ms'] / ms:.3f} of it; "
+            + launch_note(N, L, P))
+        res[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                         bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                         **dp_versions(name, args, kw, ref, baseline))
     return res
 
 
@@ -214,7 +393,18 @@ EXACT_BUCKETS = (("exact_N64_L64_P1", 4096, 64, 64, 1, SCORES),
                  ("exact_N1024_L1024_P4", 8, 1024, 1024, 4, LONG_SCORES))
 
 
-def phase_exact_dp(rng, dev) -> tuple:
+def tb_bound(steps, N, L) -> dict:
+    """Kernel 3's bound on these inputs: per step the bp cell and the
+    predecessor entry it reads (1 + 4 bytes) and about 10 int32
+    operations; per window three scalars read and ti, tj (S = N + L + 1
+    int16 each) and steps written."""
+    B = steps.numel()
+    total = int(steps.sum())
+    S = N + L + 1
+    return bound(5 * total + 12 * B + B * (4 * S + 4), 10 * total)
+
+
+def phase_exact_dp(rng, dev, baseline) -> tuple:
     """Kernels 1 and 3 against their plain versions at exact mode's
     buckets.  Every window is active, as in exact mode (it launches
     groups at their exact size).  Kernel 3 and the plain traceback walk
@@ -254,15 +444,25 @@ def phase_exact_dp(rng, dev) -> tuple:
         tb_plain = cuda_ms(lambda: poa_tb_batch_ref(*tb_args, N=N, L=L,
                                                     P=P))
         steps = out_k[2]
+        bd, bt = dp_bound(args, N, L, P), tb_bound(steps, N, L)
+        log(f"exact {name} bounds: DP {bd['bound_ms']:.4f} ms by "
+            f"{bd['bound_by']} ({bd['bytes'] / 1e6:.1f} MB, "
+            f"{bd['ops'] / 1e9:.3f} Gop), traceback {bt['bound_ms']:.4f} "
+            f"ms by {bt['bound_by']} ({bt['bytes'] / 1e6:.2f} MB); DP "
+            + launch_note(N, L, P))
         log(f"exact {name} B={B}: equal (bp rows <= n_nodes, max_row, ti, "
             f"tj, steps; steps mean {steps.float().mean().item():.0f} max "
             f"{int(steps.max())}); DP kernel {dp_ms:.3f} ms, plain "
             f"{dp_plain:.3f} ms; traceback kernel {tb_ms:.3f} ms, plain "
             f"{tb_plain:.3f} ms")
         dp[name] = dict(ms=dp_ms, plain_ms=dp_plain,
-                        max_abs_err=max(bp_diff, mr_diff))
+                        max_abs_err=max(bp_diff, mr_diff),
+                        bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                        **dp_versions(name, args, kw, (bp_p, mr_p),
+                                      baseline))
         tb[name] = dict(ms=tb_ms, plain_ms=tb_plain,
-                        max_abs_err=max(tb_diff, chain_diff))
+                        max_abs_err=max(tb_diff, chain_diff),
+                        bound_ms=bt["bound_ms"], bound_by=bt["bound_by"])
     return dp, tb
 
 
@@ -312,7 +512,7 @@ def random_tile(rng, B, K, L, tlen, err):
 
 def spec_consensus(arms):
     """(codes, supports) of the NumPy spec for one window's arms."""
-    from hypo_tpu.poa.colpoa_ref import ColPoa
+    from hypo_tpu_torch.poa.colpoa_ref import ColPoa
     cp = ColPoa(SCORES["m"], SCORES["n"], SCORES["g"])
     for s, md, w in arms:
         cp.add(s, md, w=w)
@@ -324,6 +524,21 @@ def spec_consensus(arms):
 # without overflow held against the spec
 TILES = (("class0", 2048, 126, 256, 100, 256),
          ("class1", 256, 510, 1024, 400, 128))
+
+
+def cons_bound(cargs, N, P) -> dict:
+    """Kernel 2's bound on these inputs: per node below n_nodes its real
+    predecessor entries (rank and weight, 8 bytes each), count, end flag,
+    code and support read once (13 bytes) and about 4 int32 operations
+    per predecessor and 4 per node; per window two scalars read and the
+    codes, supports (N int32 each) and length written."""
+    pred_cnt, nn = cargs[2], cargs[6]
+    B = nn.numel()
+    rows = torch.arange(N, device=nn.device)[None, :] < nn[:, None]
+    n_rows = int(rows.sum())
+    n_preds = int(torch.where(rows, pred_cnt.clamp(0, P), 0).sum())
+    return bound(8 * n_preds + 13 * n_rows + 8 * B + B * (8 * N + 4),
+                 4 * n_preds + 4 * n_rows)
 
 
 def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
@@ -355,14 +570,22 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
     ms = cuda_ms(lambda: heaviest_bundle(*cargs, N=N, P=P),
                  inner=KERNEL_INNER)
     plain_ms = cuda_ms(lambda: TF._consensus_wavefront(*cargs, N=N, P=P))
+    bd = cons_bound(cargs, N, P)
     log(f"consensus {name} B={B} N={N} P={P}: equal (codes, supports, "
-        f"lengths); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"lengths); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bytes'] / 1e6:.1f}"
+        f" MB): {bd['bound_ms'] / ms:.3f} of it")
 
     # 5. the tile program vs the NumPy spec
     tile = TF.build_tile_program(N=N, L=L, K=K, P=P, B=B, A=len(pool),
                                  device=dev, **SCORES)
     targs = (pool, plen, idx, amode, aw, narms, np.zeros(B, np.int32))
-    packed = tile(*targs).cpu().numpy()
+    far = TF.poa_dp_batch = FarRows(poa_dp_batch)
+    try:
+        packed = tile(*targs).cpu().numpy()
+    finally:
+        TF.poa_dp_batch = poa_dp_batch
+    log(far.line(name))
     cc, cs, cl = (x.cpu().numpy() for x in TF._consensus_batch(st, N=N, P=P))
     nib = packed[:, :N // 2].view(np.uint8)
     codes = np.stack([nib & 0xF, nib >> 4], axis=2).reshape(B, N)
@@ -392,7 +615,7 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
     if min(launches) <= 0:
         raise RuntimeError("a kernel was never launched")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, tile=tile,
-                targs=targs)
+                targs=targs, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
 
 
 def phase_profile(tile, targs) -> None:
@@ -481,14 +704,14 @@ def _md5(path: str) -> str:
 
 
 def simulate(tmp: str, name: str, genome_size: int, hybrid: bool):
-    """A hypo_tpu.sim dataset (seed 1, 30x short reads; hybrid: 25x long
+    """A hypo_tpu_torch.sim dataset (seed 1, 30x short reads; hybrid: 25x long
     reads and short-read dropout over [0.30, 0.33) of the genome, the
     hybrid recipe of SCALE.md) and the polishing arguments that read it
     (``-B lr.bam`` when hybrid)."""
     sim = os.path.join(tmp, name)
     extra = ["--long-cov", "25", "--dropout", "0.30,0.33"] if hybrid else []
     t0 = time.time()
-    subprocess.run([sys.executable, "-m", "hypo_tpu.sim", "--out", sim,
+    subprocess.run([sys.executable, "-m", "hypo_tpu_torch.sim", "--out", sim,
                     "--genome-size", str(genome_size), "--short-cov", "30",
                     *extra, "--seed", "1"], cwd=HERE,
                    env=dict(os.environ, PYTHONPATH=HERE), check=True,
@@ -536,9 +759,9 @@ def run_port(argv, no_native: bool = False):
 
 
 def run_host(common, out: str):
-    """hypo_tpu's native host engine in a subprocess: (md5, stage
-    times)."""
-    r = subprocess.run([sys.executable, "-m", "hypo_tpu.cli", *common,
+    """The port's native host engine (``--no-device-poa``) in a
+    subprocess: (md5, stage times)."""
+    r = subprocess.run([sys.executable, "-m", "hypo_tpu_torch.cli", *common,
                         "-o", out, "--no-device-poa"], cwd=HERE,
                        env=dict(os.environ, PYTHONPATH=HERE),
                        capture_output=True, text=True, check=True)
@@ -553,7 +776,7 @@ def check_launches(path: str, launches: dict, kernels) -> None:
 
 
 def check_qv(what: str, sim: str, out: str) -> None:
-    from hypo_tpu.eval_qv import compare
+    from hypo_tpu_torch.eval_qv import compare
     q0 = compare(f"{sim}/truth.fa", f"{sim}/draft.fa")
     q1 = compare(f"{sim}/truth.fa", out)
     log(f"{what} QV: draft {q0['qv']:.2f} (edit distance "
@@ -583,14 +806,25 @@ def log_tiles(what: str, stats: dict) -> None:
         raise RuntimeError(f"{what}: no window went through the device")
 
 
-def same_md5(what: str, port: str, host: str) -> None:
-    log(f"{what} md5: port {port} host {host}")
-    if port != host:
-        raise RuntimeError(f"{what}: port and host engine FASTA differ")
+# md5 of the FASTA that hypo_tpu's host engine (``python -m hypo_tpu.cli
+# ... --no-device-poa``) writes from each simulation of this script: the
+# tie between the port and the JAX package on the card
+PINNED_MD5 = {"sim_4m": "db85bbe32c2b4637f6e6a5e933e5c498",
+              "sim_hybrid": "2989f8d282e631eb5c6307e062eef83d",
+              "sim_no_native": "11375dabd37edd4de899aeba20f8d588"}
+
+
+def same_md5(what: str, sim: str, port: str, host: str) -> None:
+    """The port's device run and its host engine both write the FASTA
+    pinned for ``sim``."""
+    pin = PINNED_MD5[os.path.basename(sim)]
+    log(f"{what} md5: port {port} host engine {host} pinned {pin}")
+    if port != pin or host != pin:
+        raise RuntimeError(f"{what}: FASTA differs from the pinned md5")
 
 
 def phase_e2e(tmp: str, genome_size: int = 4_000_000) -> dict:
-    from hypo_tpu.native import host_api
+    from hypo_tpu_torch.native import host_api
     if not host_api.available():
         raise RuntimeError("the native host library did not build/load")
     sim, common = simulate(tmp, "sim_4m", genome_size, hybrid=False)
@@ -602,7 +836,7 @@ def phase_e2e(tmp: str, genome_size: int = 4_000_000) -> dict:
     log_tiles("e2e port", stats)
     log_times("e2e host engine (--no-device-poa)", host_times)
     check_qv("e2e", sim, out)
-    same_md5("e2e", _md5(out), md5_host)
+    same_md5("e2e", sim, _md5(out), md5_host)
     check_launches("e2e (full mode, 4 Mbp)", launches,
                    ("poa_dp", "consensus"))
     return launches
@@ -615,16 +849,24 @@ def phase_exact_e2e(tmp: str, genome_size: int = 1_000_000) -> tuple:
                                     os.path.join(tmp, "host_hybrid.fa"))
     out = os.path.join(tmp, "torch_exact.fa")
     # where the POA stage goes: each device call (kernel 1 then kernel 3)
-    # timed on the host clock up to a synchronize; the rest is host work
+    # timed on the host clock up to a synchronize; the rest is host work.
+    # Per (N, L, P) bucket: calls, windows, launches of kernels 1 and 3
     from hypo_tpu_torch.poa import batch
     device_s = [0.0]
+    buckets = {}
     orig = batch.poa_dp_tb_batch
 
     def timed(*a, **k):
+        n1, n3 = poa_dp_batch.launches, poa_tb_batch.launches
         t0 = time.perf_counter()
         res = orig(*a, **k)
         torch.cuda.synchronize()
         device_s[0] += time.perf_counter() - t0
+        bk = buckets.setdefault((k["N"], k["L"], k["P"]), [0, 0, 0, 0])
+        bk[0] += 1
+        bk[1] += a[0].shape[0]
+        bk[2] += poa_dp_batch.launches - n1
+        bk[3] += poa_tb_batch.launches - n3
         return res
 
     batch.poa_dp_tb_batch = timed
@@ -644,9 +886,12 @@ def phase_exact_e2e(tmp: str, genome_size: int = 1_000_000) -> tuple:
         f" ({stats['device_rounds']} calls, kernels 1 + 3 to a sync), the "
         f"rest {host_s:.2f} s ({1e6 * host_s / max(aligns, 1):.0f} us per "
         f"aligned arm: job building, graph extraction, copies, merges)")
+    for (N, L, P), (calls, wins, k1, k3) in sorted(buckets.items()):
+        log(f"exact bucket N={N} L={L} P={P}: {calls} calls, {wins} "
+            f"windows, kernel 1 launches {k1}, kernel 3 launches {k3}")
     log_times("exact host engine (--no-device-poa)", host_times)
     check_qv("exact", sim, out)
-    same_md5("exact", _md5(out), md5_host)
+    same_md5("exact", sim, _md5(out), md5_host)
     if stats["device_aligns"] <= 0:
         raise RuntimeError("exact: no arm was aligned on the device")
     check_launches("exact (1 Mbp hybrid)", launches, ("poa_dp", "poa_tb"))
@@ -656,7 +901,7 @@ def phase_exact_e2e(tmp: str, genome_size: int = 1_000_000) -> tuple:
         common + ["-o", out, "--device-poa"])
     log_times("hybrid full-mode port (--device-poa)", times, wall)
     log_tiles("hybrid full-mode port", stats)
-    same_md5("hybrid full mode", _md5(out), md5_host)
+    same_md5("hybrid full mode", sim, _md5(out), md5_host)
     check_launches("full mode (1 Mbp hybrid)", full_launches,
                    ("poa_dp", "consensus"))
     return launches, full_launches
@@ -675,19 +920,31 @@ def phase_no_native(tmp: str, genome_size: int = 200_000) -> dict:
               wall)
     log_tiles("no-native port", stats)
     log_times("no-native host engine (native, --no-device-poa)", host_times)
-    same_md5("no-native", _md5(out), md5_host)
+    same_md5("no-native", sim, _md5(out), md5_host)
     check_launches("no-native (200 kbp hybrid)", launches,
                    ("poa_dp", "consensus"))
     return launches
 
 
+def parse_args(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dp-baseline", metavar="CU",
+                    help="an earlier csrc/poa_dp.cu to time kernel 1 "
+                         "against, in the same run, at all six shapes")
+    return ap.parse_args(argv)
+
+
 def main() -> None:
+    opts = parse_args()
     card = phase_env()
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(20261016)
-    phase_build()
-    dp = phase_dp(rng, dev)
-    exact_dp, exact_tb = phase_exact_dp(rng, dev)
+    phase_build(opts.dp_baseline)
+    baseline = (_build.load("poa_dp_baseline", opts.dp_baseline)
+                if opts.dp_baseline else None)
+    dp = phase_dp(rng, dev, baseline)
+    exact_dp, exact_tb = phase_exact_dp(rng, dev, baseline)
     cons = {t[0]: phase_tile(rng, dev, *t) for t in TILES}
     phase_profile(cons["class0"]["tile"], cons["class0"]["targs"])
     with tempfile.TemporaryDirectory(prefix="hypo_chip_smoke_") as tmp:
@@ -697,7 +954,8 @@ def main() -> None:
         paths["no_native_200kbp_hybrid"] = phase_no_native(tmp)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
-    cons = {k: {f: v[f] for f in ("ms", "plain_ms", "max_abs_err")}
+    cons = {k: {f: v[f] for f in ("ms", "plain_ms", "max_abs_err",
+                                   "bound_ms", "bound_by")}
             for k, v in cons.items()}
 
     def entry(name, key, replaces, path, shape, by_shape):
@@ -709,7 +967,10 @@ def main() -> None:
                     path=path, max_abs_err=max(v["max_abs_err"]
                                                for v in by_shape.values()),
                     ms=by_shape[shape]["ms"],
-                    plain_ms=by_shape[shape]["plain_ms"], shape=shape,
+                    plain_ms=by_shape[shape]["plain_ms"],
+                    bound_ms=by_shape[shape]["bound_ms"],
+                    bound_by=by_shape[shape]["bound_by"], library_ms=None,
+                    shape=shape,
                     shapes=by_shape,
                     launches_by_path={p: c[key] for p, c in paths.items()})
 

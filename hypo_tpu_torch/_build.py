@@ -1,21 +1,28 @@
-"""Build and load the CUDA kernels (csrc/*.cu) at first use.
+"""Build and load the port's native code at first use, into the
+git-ignored ``_build/`` directory.
 
-Each ``csrc/<name>.cu`` exports a plain C interface and is compiled
-with ``nvcc`` for Hopper (sm_90a) into ``_build/lib<name>.so``, then
-loaded with ctypes — the pattern hypo_tpu.native.host_api uses for its
-g++ libraries.  A library is rebuilt when its source is newer.  A
-failed build raises with the compiler's output: there is no fallback.
-Different libraries may be built from several threads at once.
+Each CUDA kernel ``csrc/<name>.cu`` exports a plain C interface and is
+compiled with ``nvcc`` for Hopper (sm_90a) into ``_build/lib<name>.so``,
+then loaded with ctypes.  A library is rebuilt when its source is
+newer.  A failed nvcc build raises with the compiler's output: there is
+no fallback.  Different libraries may be built from several threads at
+once.
+
+``build_host`` compiles the host libraries of ``native/`` with g++ the
+same way; a process holds a file lock while it builds, so processes
+started together build each library once.  A failed g++ build returns
+False, and the caller takes its NumPy path (``native.*.available()``).
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
@@ -54,16 +61,16 @@ def _compile(name: str, src: str, lib: str) -> None:
     build_log[name] = (time.time() - t0, r.stdout + r.stderr)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if missing or
-    older than its source."""
+def load(name: str, src: Optional[str] = None) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (or of ``src``, under
+    ``name``), built first if missing or older than its source."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(SRC_DIR, f"{name}.cu")
+        src = src or os.path.join(SRC_DIR, f"{name}.cu")
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         if (not os.path.exists(so)
                 or os.path.getmtime(so) < os.path.getmtime(src)):
@@ -72,6 +79,29 @@ def load(name: str) -> ctypes.CDLL:
         lib.hypo_cuda_error_string.restype = ctypes.c_char_p
         lib.hypo_cuda_error_string.argtypes = [ctypes.c_int]
         _libs[name] = lib
+        return lib
+
+
+def build_host(src: str, lib_name: str, flags: List[str],
+               libs: List[str]) -> Optional[str]:
+    """``g++ flags src -o _build/lib_name libs`` unless that library is
+    newer than ``src``; returns its path, or None when g++ fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib = os.path.join(BUILD_DIR, lib_name)
+    with open(lib + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (os.path.exists(lib)
+                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+            return lib
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        t0 = time.time()
+        try:
+            subprocess.run(["g++", *flags, src, "-o", tmp, *libs],
+                           check=True, capture_output=True, timeout=300)
+            os.replace(tmp, lib)
+        except Exception:
+            return None
+        build_log[lib_name] = (time.time() - t0, "")
         return lib
 
 

@@ -1,26 +1,143 @@
-"""The polishing orchestrator with window consensus on a PyTorch device.
+"""The polishing orchestrator (reference src/Hypo.cpp Hypo::polish).
 
-``Polisher`` is hypo_tpu's orchestrator (hypo_tpu.pipeline.polish,
-jax-free) with its two device hooks replaced: ``_resolve_device_poa``
-(auto keeps the host engine; the JAX package's auto needed a TPU and an
-opt-in) and ``_make_device_runner``: mode ``full`` builds the tile
-runner of poa.full_runner, mode ``exact`` the runner of poa.batch, both
-on a CUDA device.  The inherited ``_polish_batch`` then drives the full
-runner through ``run_polish_batch`` when hypo_tpu's native host library
-is available and through ``run_windows`` when it is not, and the exact
-runner always through ``run_windows``, as in the JAX package.  Asking
-for the device path without CUDA exits with an error: nothing moves to
-the CPU quietly.
+Pipeline per batch of contigs:
+  solid k-mers -> contigs -> solid positions -> [stream short BAM] ->
+  k-mer support -> SR/MegaWindows -> minimizer support -> window division
+  -> short arms -> window fill/prune -> [optional long pass] -> POA
+  consensus -> FASTA.
+
+Stage checkpointing mirrors the reference's aux/ dir (-i): solid kmers in
+``aux/solid_kmers.npz`` and ``aux/stage.txt`` appended per stage
+(reference main.cpp:326-350, Hypo.cpp:49-77).
+
+Window consensus runs either on the host engine or (use_device_poa) on
+a CUDA device: mode ``full`` through the tile runner of
+poa.full_runner, mode ``exact`` through the runner of poa.batch.  The
+full runner takes ``run_polish_batch`` when the native host library is
+available and ``run_windows`` when it is not; the exact runner always
+takes ``run_windows``.  Asking for the device path without CUDA exits
+with an error: nothing moves to the CPU quietly.
+
+Copied from hypo_tpu/pipeline/polish.py with its two device hooks
+replaced (``_resolve_device_poa``: auto keeps the host engine, where
+the JAX package probed for a TPU; ``_make_device_runner``: the port's
+runners on a CUDA device, or on the CPU device a test passes) and
+without its multi-process branches (parallel.distributed, and the
+streams' shard skip), which the port's command line refuses.
 """
 from __future__ import annotations
 
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
 import torch
 
-from hypo_tpu.config import InputFlags
-from hypo_tpu.pipeline import polish as _host_polish
+from ..config import STAGE_BEG, STAGE_SK, InputFlags
+from ..io.bam import FDUP, FQCFAIL, FSECONDARY, FUNMAP, read_alignments
+from ..io.fasta import read_fastx, write_fasta
+from ..kmers.solid import SolidKmers
+from ..poa.engine import ConsensusEngine
+from ..segment.support import (update_minimisers_support,
+                               update_solidkmers_support)
+from ..utils.monitor import Monitor
+from .alignment import Alignment
+from .contig import Contig
 
-from ..poa.batch import DeviceConsensusRunner
-from ..poa.full_runner import FullDeviceRunner
+
+def open_stream(path: str, cname_to_id: Dict[str, int]):
+    """Prefer the native (C++) streaming BAM loader; fall back to the
+    pure-Python reader (also handles SAM and non-draft-ordered BAMs)."""
+    if path.endswith(".bam"):
+        from ..native import bam_api
+        if bam_api.available():
+            try:
+                return _NativeStream(path, cname_to_id)
+            except (ValueError, IOError):
+                pass  # e.g. refs not in draft order -> python path
+    return _BamStream(path, cname_to_id)
+
+
+class _NativeStream:
+    def __init__(self, path: str, cname_to_id: Dict[str, int]):
+        from ..native import bam_api, host_api
+        self.inner = bam_api.NativeBamStream(path, cname_to_id)
+        # flat AlignmentViews need the native host stages to consume
+        # them; with only the BAM lib present fall back to objects
+        self.flat = host_api.available()
+
+    def load_until(self, final_cid: int, min_mapq: int,
+                   norm_edit_th=None, contig_lens=None):
+        """Returns (store: cid -> AlignmentView | [Alignment], n_valid,
+        n_invalid).  The flat view path materializes NO per-record
+        Python objects (at human scale 20M Alignment objects cost
+        ~20 GB RSS and minutes of construction)."""
+        if self.flat:
+            return self.inner.load_store(final_cid, min_mapq,
+                                         norm_edit_th)
+        recs, n, n_invalid = self.inner.load_until(final_cid, min_mapq,
+                                                   norm_edit_th)
+        store: Dict[int, List[Alignment]] = {}
+        for cid, rb, re, codes, ops, lens, raw in recs:
+            store.setdefault(cid, []).append(
+                Alignment.from_parsed(rb, re, codes, ops, lens, raw))
+        return store, n, n_invalid
+
+
+class _BamStream:
+    """One-pass BAM reader with a single-record lookahead so batch
+    boundaries can be detected (reference Hypo.cpp:320-322 relies on the
+    BAM being sorted in draft contig order)."""
+
+    def __init__(self, path: str, cname_to_id: Dict[str, int]):
+        refs, it = read_alignments(path)
+        self.it = it
+        self.tid_to_cid = {}
+        for tid, (name, _len) in enumerate(refs):
+            if name in cname_to_id:
+                self.tid_to_cid[tid] = cname_to_id[name]
+            # unknown names fail lazily, matching the reference error
+        self.pending = None
+
+    def records_until(self, final_cid: int):
+        """Yield (cid, record) while cid < final_cid."""
+        if self.pending is not None:
+            cid, rec = self.pending
+            if cid >= final_cid:
+                return
+            self.pending = None
+            yield cid, rec
+        for rec in self.it:
+            if rec.flag & (FUNMAP | FSECONDARY | FQCFAIL | FDUP):
+                continue
+            if rec.tid < 0:
+                continue
+            if rec.tid not in self.tid_to_cid:
+                raise ValueError(
+                    f"contig id {rec.tid} in BAM not present in draft")
+            cid = self.tid_to_cid[rec.tid]
+            if cid >= final_cid:
+                self.pending = (cid, rec)
+                return
+            yield cid, rec
+
+    def load_until(self, final_cid: int, min_mapq: int,
+                   norm_edit_th=None, contig_lens=None):
+        """Same contract as _NativeStream.load_until."""
+        store: Dict[int, List[Alignment]] = {}
+        n = n_invalid = 0
+        for cid, rec in self.records_until(final_cid):
+            if rec.mapq < min_mapq:
+                continue
+            aln = Alignment.from_record(rec, contig_lens[cid],
+                                        norm_edit_th=norm_edit_th)
+            if aln.is_valid:
+                store.setdefault(cid, []).append(aln)
+                n += 1
+            else:
+                n_invalid += 1
+        return store, n, n_invalid
 
 
 def cuda_device() -> torch.device:
@@ -31,23 +148,62 @@ def cuda_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-class Polisher(_host_polish.Polisher):
+class Polisher:
     """``device`` is where the device runner computes: None means the
     current CUDA device; tests pass torch.device("cpu") to run the
     kernels' plain versions."""
 
     def __init__(self, flags: InputFlags, device=None):
-        super().__init__(flags)
+        self.flags = flags
         self.device = device
+        self.monitor = Monitor()
+        self.contigs: List[Contig] = []
+        self.no_long_reads = flags.lr_bam_filename == ""
 
+    # -- solid kmers (Hypo.cpp:47-78) -------------------------------------
+    def _get_solid_kmers(self) -> SolidKmers:
+        f = self.flags
+        skfile = os.path.join(f.aux_dir, "solid_kmers.npz")
+        stagefile = os.path.join(f.aux_dir, "stage.txt")
+        if f.intermed and f.done_stage >= STAGE_SK and os.path.exists(skfile):
+            sk = SolidKmers.load(skfile)
+            self.monitor.stop("[hypo_tpu] Loaded solid kmers. ")
+            return sk
+        sk = SolidKmers(f.k).initialise(f.sr_filenames, f.cov)
+        if f.intermed:
+            os.makedirs(f.aux_dir, exist_ok=True)
+            sk.store(skfile)
+            with open(stagefile, "a") as fh:
+                fh.write(f"Stage:SolidKmers [{time.ctime()}]\t{STAGE_SK}\n")
+        self.monitor.stop("[hypo_tpu] Computed solid kmers. ")
+        return sk
+
+    # -- main -------------------------------------------------------------
     def _resolve_device_poa(self) -> None:
+        """use_device_poa=None means auto, which keeps the host engine
+        (on short-read workloads it beats the device tile path end to
+        end); --device-poa forces the device path."""
         if self.flags.use_device_poa is None:
             self.flags.use_device_poa = False
 
     def _make_device_runner(self):
+        """The device consensus runner, its scores checked against the
+        DP kernel's int16 cells and its kernels built (or loaded), before
+        the host stages start."""
         f = self.flags
         if not f.use_device_poa:
             return None
+        from ..poa.batch import DeviceConsensusRunner
+        from ..poa.full_runner import FullDeviceRunner
+        runner_cls = (FullDeviceRunner if f.device_poa_mode == "full"
+                      else DeviceConsensusRunner)
+        try:
+            runner_cls.check_scores(f.score_params,
+                                    long_reads=not self.no_long_reads)
+        except ValueError as e:
+            raise SystemExit(f"hypo_tpu_torch: --device-poa-mode "
+                             f"{f.device_poa_mode} cannot take these scores "
+                             f"({e}); polish with --no-device-poa") from None
         device = self.device if self.device is not None else cuda_device()
         if f.device_poa_mode == "full":
             runner = FullDeviceRunner(f.score_params, device,
@@ -56,6 +212,213 @@ class Polisher(_host_polish.Polisher):
             runner = DeviceConsensusRunner(f.score_params, device)
         runner.warm()
         return runner
+
+    def polish(self) -> None:
+        f = self.flags
+        mon = self.monitor
+        self._resolve_device_poa()
+        self.device_runner = self._make_device_runner()
+        mon.start()
+        sk = self._get_solid_kmers()
+        print(f"[hypo_tpu] solid (canonical, non-HP) kmers: "
+              f"{sk.get_num_solid_kmers()}")
+
+        mon.start()
+        cname_to_id: Dict[str, int] = {}
+        for cid, (name, seq) in enumerate(read_fastx(f.draft_filename)):
+            cname_to_id[name] = cid
+            self.contigs.append(Contig(cid, name, seq))
+        mon.stop("[hypo_tpu] Loaded contigs. ")
+
+        n_contigs = len(self.contigs)
+        mon.start()
+        for ctg in self.contigs:
+            ctg.find_solid_pos(sk)
+        mon.stop("[hypo_tpu] Found solid positions. ")
+
+        batch = f.processing_batch_size or max(1, n_contigs)
+        sr_stream = open_stream(f.sr_bam_filename, cname_to_id)
+        lr_stream = (None if self.no_long_reads
+                     else open_stream(f.lr_bam_filename, cname_to_id))
+        engine = ConsensusEngine(f.score_params)
+
+        lo = 0
+        while lo < n_contigs:
+            hi = min(n_contigs, lo + batch)
+            self._polish_batch(sr_stream, lr_stream, engine, lo, hi)
+            lo = hi
+
+        mon.start()
+        write_fasta(f.output_filename,
+                    ((c.name, c.polished_seq(self.no_long_reads))
+                     for c in self.contigs))
+        mon.stop("[hypo_tpu] Wrote results. ")
+        mon.total("[hypo_tpu] Overall. ")
+
+    def _polish_batch(self, sr_stream, lr_stream, engine, lo: int,
+                      hi: int) -> None:
+        f = self.flags
+        mon = self.monitor
+        ws = f.window_settings
+        mon.start()
+        clens = [c.length for c in self.contigs]
+        loaded, num_alns, num_invalid = sr_stream.load_until(
+            hi, f.map_qual_th, contig_lens=clens)
+        store: Dict[int, List[Alignment]] = {c: [] for c in range(lo, hi)}
+        store.update(loaded)
+        mon.stop(f"[hypo_tpu] Loaded {num_alns} short alignments "
+                 f"({num_invalid} invalid). ")
+
+        from ..native import host_api
+        native_host = host_api.available()
+
+        mon.start()
+        for cid in range(lo, hi):
+            if native_host:
+                host_api.skmer_support(self.contigs[cid], store[cid], f.k,
+                                       f.threads)
+            else:
+                update_solidkmers_support(self.contigs[cid], store[cid],
+                                          f.k)
+        mon.stop("[hypo_tpu] Solid kmer support. ")
+
+        mon.start()
+        for cid in range(lo, hi):
+            self.contigs[cid].prepare_for_division(f.k, ws)
+        num_sr = sum(c.num_sr for c in self.contigs[lo:hi])
+        len_sr = sum(c.len_sr for c in self.contigs[lo:hi])
+        print(f"[hypo_tpu] SRs: {num_sr} covering {len_sr} bp")
+        mon.stop("[hypo_tpu] Strong regions. ")
+
+        mon.start()
+        for cid in range(lo, hi):
+            if native_host:
+                from ..config import MINIMIZER_SETTINGS as MS
+                host_api.minimizer_support(self.contigs[cid], store[cid],
+                                           MS.k, MS.w, f.threads)
+            else:
+                update_minimisers_support(self.contigs[cid], store[cid])
+        mon.stop("[hypo_tpu] Minimizer support. ")
+
+        mon.start()
+        for cid in range(lo, hi):
+            self.contigs[cid].divide_into_regions(ws)
+        mon.stop("[hypo_tpu] Window division. ")
+
+        from ..config import ARMS_SETTINGS, MINIMIZER_SETTINGS as MS2
+        # tile fast path: window consensus reads arms straight from
+        # the flat native arm table (no per-window Python arm lists).
+        # The same native job builder feeds either engine: device tiles
+        # (FullDeviceRunner) or the OpenMP jobs-consensus
+        # (HostTileRunner).
+        if self.device_runner is not None:
+            tile_runner = self.device_runner
+        else:
+            from ..poa.host_runner import HostTileRunner
+            tile_runner = HostTileRunner(
+                f.score_params, threads=f.threads)
+        fast_tiles = (native_host
+                      and hasattr(tile_runner, "supports_native_tiles")
+                      and tile_runner.supports_native_tiles())
+        mon.start()
+        arm_tables: Dict[int, tuple] = {}
+        for cid in range(lo, hi):
+            ctg = self.contigs[cid]
+            if native_host:
+                arm_tables[cid] = host_api.find_arms(
+                    ctg, store[cid], f.k, MS2.k, False,
+                    ARMS_SETTINGS.short_arm_coef, f.threads)
+                if fast_tiles:
+                    alns = store[cid]
+                    if hasattr(alns, "seq"):   # flat AlignmentView
+                        ctg._device_arm_data = (arm_tables[cid],
+                                                alns.seq, alns.seq_off)
+                    else:
+                        buf, off, _rb, _re = host_api._pack_alignments(
+                            alns)
+                        ctg._device_arm_data = (arm_tables[cid], buf,
+                                                off)
+            else:
+                for aln in store[cid]:
+                    aln.find_short_arms(f.k, ctg)
+        if native_host:
+            host_api.clear_pack_cache()
+        mon.stop("[hypo_tpu] Short arms. ")
+
+        mon.start()
+        for cid in range(lo, hi):
+            if fast_tiles:
+                self.contigs[cid].add_arm_table_counts(arm_tables.pop(cid))
+                self.contigs[cid].fill_short_windows([])
+            elif native_host:
+                self.contigs[cid].add_arm_table(store[cid],
+                                                arm_tables.pop(cid))
+                self.contigs[cid].fill_short_windows([])
+            else:
+                self.contigs[cid].fill_short_windows(store[cid])
+            store[cid] = []
+        mon.stop("[hypo_tpu] Window fill. ")
+
+        if lr_stream is not None:
+            mon.start()
+            lloaded, _n, _ninv = lr_stream.load_until(
+                hi, f.map_qual_th, norm_edit_th=f.norm_edit_th,
+                contig_lens=clens)
+            lstore: Dict[int, List[Alignment]] = {
+                c: [] for c in range(lo, hi)}
+            lstore.update(lloaded)
+            for cid in range(lo, hi):
+                self.contigs[cid].prepare_long_windows(ws)
+            for cid in range(lo, hi):
+                ctg = self.contigs[cid]
+                if native_host:
+                    table = host_api.find_arms(
+                        ctg, lstore[cid], f.k, MS2.k, True,
+                        ARMS_SETTINGS.short_arm_coef, f.threads)
+                    ctg.add_arm_table(lstore[cid], table)
+                    ctg.fill_long_windows([])
+                else:
+                    for aln in lstore[cid]:
+                        aln.find_long_arms(ctg)
+                    ctg.fill_long_windows(lstore[cid])
+                lstore[cid] = []
+            if native_host:
+                host_api.clear_pack_cache()
+            mon.stop("[hypo_tpu] Long arms. ")
+
+        mon.start()
+        nwin = 0
+        if fast_tiles:
+            nwin += tile_runner.run_polish_batch(
+                self.contigs[lo:hi])
+            for cid in range(lo, hi):
+                ctg = self.contigs[cid]
+                ctg._device_arm_data = None
+                for w in ctg.windows:
+                    if w is not None:
+                        w.clear_arms()
+        else:
+            all_windows = [w for cid in range(lo, hi)
+                           for w in self.contigs[cid].windows
+                           if w is not None]
+            if self.device_runner is not None:
+                nwin += self.device_runner.run_windows(all_windows)
+            else:
+                nwin += engine.generate_consensus_batch(all_windows,
+                                                        f.threads)
+            for w in all_windows:
+                w.clear_arms()  # arms are dead once consensus is set
+        mon.stop(f"[hypo_tpu] POA over {nwin} windows. ")
+
+        if f.inspect:
+            os.makedirs(f.aux_dir, exist_ok=True)
+            mode = "w" if lo == 0 else "a"
+            with open(os.path.join(f.aux_dir, "regions.bed"), mode) as fh:
+                for cid in range(lo, hi):
+                    self.contigs[cid].write_bed(fh)
+            with open(os.path.join(f.aux_dir, "inspect.txt"), mode) as fh:
+                for cid in range(lo, hi):
+                    self.contigs[cid].write_window_dump(fh)
 
 
 def polish(flags: InputFlags, device=None) -> Polisher:

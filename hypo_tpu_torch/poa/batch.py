@@ -6,8 +6,8 @@ All windows advance in lockstep arm rounds.  Round r groups the r-th
 sequence of every still-active window into (scores, N, L, P) buckets
 and runs one device call per bucket (poa.cuda_tb.poa_dp_tb_batch:
 kernel 1, the DP, then kernel 3, the traceback), then merges each
-traceback into its window's host graph (hypo_tpu's NativeGraph, or its
-Python Graph without the native library).  The first sequence of a
+traceback into its window's host graph (native.NativeGraph, or the
+Python poa.graph.Graph without the native library).  The first sequence of a
 window needs no DP.  Windows whose graph outgrows the largest bucket
 finish on the host aligner, so the consensus always equals the host
 engine's.  LONG windows run their two curated rounds (long1, long2) on
@@ -25,15 +25,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from hypo_tpu.config import ScoreParams
-from hypo_tpu.dna import decode
-from hypo_tpu.poa.align import PoaAligner
-from hypo_tpu.poa.engine import CURATE_THRESH, HEAD, TAIL
-from hypo_tpu.poa.graph import Graph
-
+from ..config import ScoreParams
+from ..dna import decode
 from . import LOV, NW, ROV
+from .align import PoaAligner
+from .cuda_poa import check_scores
 from .cuda_tb import poa_dp_tb_batch
 from .dp import alignment_from_steps, encode_global, extract_graph_arrays
+from .engine import CURATE_THRESH, HEAD, TAIL
+from .graph import Graph
 
 N_CAPS = (64, 128, 256, 512, 1024)
 L_CAPS = (64, 128, 256, 512, 1024)
@@ -57,7 +57,7 @@ class _Job:
         self.seqs = seqs          # list of (seq_str, mode)
         self.scores = scores      # (m, n, g)
         if use_native:
-            from hypo_tpu.native import NativeGraph
+            from ..native import NativeGraph
             self.graph = NativeGraph()
         else:
             self.graph = Graph()
@@ -77,7 +77,7 @@ class DeviceConsensusRunner:
     KERNELS: Tuple[str, ...] = ("poa_dp", "poa_tb")
 
     def __init__(self, sp: ScoreParams, device):
-        from hypo_tpu.native import available
+        from ..native import available
         self.sp = sp
         self.device = torch.device(device)
         self.short_scores = (sp.sr_match, sp.sr_mismatch, sp.sr_gap)
@@ -86,6 +86,17 @@ class DeviceConsensusRunner:
         self.use_native = available()
         self.stats = {"device_rounds": 0, "device_aligns": 0,
                       "long_aligns": 0, "host_fallbacks": 0}
+
+    @classmethod
+    def check_scores(cls, sp: ScoreParams, long_reads: bool) -> None:
+        """Raises ValueError unless the DP kernel's int16 cells hold the
+        scores this runner launches at its largest bucket: the short-read
+        scores, and the long-read ones when there are long reads."""
+        sets = [(sp.sr_match, sp.sr_mismatch, sp.sr_gap)]
+        if long_reads:
+            sets.append((sp.lr_match, sp.lr_mismatch, sp.lr_gap))
+        for m, n, g in sets:
+            check_scores(m, n, g, N_CAPS[-1], L_CAPS[-1])
 
     def warm(self) -> None:
         """Build (or load) the kernels on a CUDA device, so the first

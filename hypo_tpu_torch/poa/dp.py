@@ -55,7 +55,7 @@ def alignment_from_steps(ti: np.ndarray, tj: np.ndarray, steps: int,
 
 
 def extract_graph_arrays(graph, N: int, P: int):
-    """Flatten a host ``hypo_tpu.poa.Graph`` into the fixed-shape arrays
+    """Flatten a host ``poa.graph.Graph`` into the fixed-shape arrays
     the DP consumes: (node_code, pred_rows, pred_cnt, is_end, n_nodes),
     or None if the graph exceeds the (N, P) caps."""
     nn = len(graph.rank_to_node_id)

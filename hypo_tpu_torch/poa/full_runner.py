@@ -2,8 +2,8 @@
 port of hypo_tpu.poa.full_runner.FullDeviceRunner (``--device-poa``,
 mode ``full``), with both of its paths.
 
-``run_polish_batch`` (the native tile path): hypo_tpu's native job
-builder (host_api.tile_jobs, via host_runner.build_batch_jobs) settles
+``run_polish_batch`` (the native tile path): the native job builder
+(native.host_api.tile_jobs, via host_runner.build_batch_jobs) settles
 trivial windows and deduplicates arms, host_api.tile_pack packs B
 windows into a tile, host_api.tile_finalize unpacks the tile's output.
 
@@ -32,14 +32,14 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from hypo_tpu.config import ScoreParams
-from hypo_tpu.native import host_api
-from hypo_tpu.poa.engine import CURATE_THRESH, ConsensusEngine
-from hypo_tpu.poa.host_runner import build_batch_jobs, materialize_arms_bulk
-
+from ..config import ScoreParams
+from ..native import host_api
 from . import GLOBAL_ALPHABET, GLOBAL_CODE, NW
 from .batch import DeviceConsensusRunner, _Job
+from .cuda_poa import check_scores
 from .device_full import build_tile_program
+from .engine import CURATE_THRESH, ConsensusEngine
+from .host_runner import build_batch_jobs, materialize_arms_bulk
 
 # shape classes: (L arm-length cap, N node/column cap, K distinct-arm
 # cap, B batch tile, A arm-pool cap) — hypo_tpu full_runner.CLASSES
@@ -94,6 +94,14 @@ class FullDeviceRunner(DeviceConsensusRunner):
                            # per shape class (index into CLASSES)
                            "class_tiles": [0] * len(CLASSES),
                            "class_windows": [0] * len(CLASSES)})
+
+    @classmethod
+    def check_scores(cls, sp: ScoreParams, long_reads: bool) -> None:
+        """As DeviceConsensusRunner.check_scores, at the shape classes:
+        full mode launches the short-read scores only (LONG windows go
+        to the host engine)."""
+        for L, N, _K, _B, _A in CLASSES:
+            check_scores(sp.sr_match, sp.sr_mismatch, sp.sr_gap, N, L)
 
     @staticmethod
     def supports_native_tiles() -> bool:

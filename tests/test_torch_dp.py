@@ -121,3 +121,85 @@ def test_dp_kernel_matches_plain_on_card(cuda_device):
         bp_ref, mr_ref = poa_dp_batch_ref(*targs, **kw)
         _assert_equal(bp, mr, bp_ref.cpu(), mr_ref.cpu(),
                       np.asarray(args[4]), case)
+
+
+def counts_bucket(B, N, L, P, seed, reach=40):
+    """Graphs whose rows have 0, 1 or P predecessors (rows without one
+    lie outside the DP's contract, pred_cnt >= 1, and are held equal all
+    the same), reaching up to ``reach`` rows back: within the kernel's
+    ring of 16 rows for reach <= 16, beyond it (rows read from the
+    device-memory copy) above; mixed modes, ragged sizes."""
+    rng = np.random.default_rng(seed)
+    nc = rng.integers(0, 6, (B, N)).astype(np.int32)
+    pr = np.maximum(np.arange(N)[None, :, None]
+                    - rng.integers(0, reach, (B, N, P)), 0).astype(np.int32)
+    pr[:, :, 0] = np.arange(N)[None, :]
+    pc = rng.choice([0, 1, P], (B, N), p=[0.05, 0.6, 0.35]).astype(np.int32)
+    nn = rng.integers(N // 2, N + 1, B).astype(np.int32)
+    nn[0], nn[1] = 0, N
+    ie = rng.random((B, N)) < 0.1
+    ie[np.arange(B), np.maximum(nn - 1, 0)] = True
+    arm = rng.integers(0, 6, (B, L)).astype(np.int32)
+    al = rng.integers(0, L + 1, B).astype(np.int32)
+    md = rng.choice([0, 1, 2], B).astype(np.int32)
+    return nc, pr, pc, ie, nn, arm, al, md
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [
+    # a small class-0 tile (N, L of class 0), a small exact bucket, an
+    # arm wider than 512 columns (2 columns a thread) and a graph
+    # smaller than the ring
+    (24, 256, 126, 8, (5, -4, -8)),
+    (12, 128, 128, 4, (3, -5, -4)),
+    (6, 512, 700, 2, (3, -5, -4)),
+    (16, 8, 20, 2, (5, -4, -8)),
+])
+@pytest.mark.parametrize("reach", [8, 40, 300])
+def test_dp_kernel_matches_plain_with_pred_counts_0_1_P(cuda_device, bucket,
+                                                        reach):
+    B, N, L, P, (m, n, g) = bucket
+    args = counts_bucket(B, N, L, P, seed=N + L + reach, reach=reach)
+    kw = dict(N=N, L=L, P=P, m=m, n=n, g=g)
+    targs = [torch.as_tensor(a, device=cuda_device) for a in args]
+    bp, mr = (x.cpu().numpy() for x in cuda_poa.poa_dp_batch(*targs, **kw))
+    bp_ref, mr_ref = poa_dp_batch_ref(*targs, **kw)
+    _assert_equal(bp, mr, bp_ref.cpu(), mr_ref.cpu(), args[4],
+                  (bucket, reach))
+
+
+@pytest.mark.cuda
+def test_dp_kernel_refuses_cells_beyond_int16(cuda_device):
+    args, N, L, P = CASES["chain_B5"]()
+    targs = [torch.as_tensor(np.asarray(a), device=cuda_device)
+             for a in args]
+    with pytest.raises(ValueError, match="int16 cells"):
+        cuda_poa.poa_dp_batch(*targs, N=N, L=L, P=P, m=5, n=-4, g=-400)
+
+
+@pytest.mark.cuda
+def test_dp_kernel_matches_plain_with_scores_near_int16(cuda_device):
+    """max(|m|, |n|, |g|) * (N + L) = 24544 at a class-1 shape: beyond
+    the NEG16 sentinel's reach, so sentinel candidates can tie real ones
+    and enter the kernel's selects; still inside int16."""
+    N, L, P = 1024, 510, 8
+    args = multi_bucket(6, N, L, P, seed=3)
+    kw = dict(N=N, L=L, P=P, m=12, n=-10, g=-16)
+    targs = [torch.as_tensor(a, device=cuda_device) for a in args]
+    bp, mr = (x.cpu().numpy() for x in cuda_poa.poa_dp_batch(*targs, **kw))
+    bp_ref, mr_ref = poa_dp_batch_ref(*targs, **kw)
+    _assert_equal(bp, mr, bp_ref.cpu(), mr_ref.cpu(), args[4], kw)
+
+
+def test_launch_shape_fits_every_dp_bucket():
+    """The launch of every shape the port launches fits the card: at
+    most 1024 threads covering the L + 1 columns and 227 KB of shared
+    memory."""
+    shapes = [(256, 126, 8), (1024, 510, 8)] + [
+        (N, L, P) for N in (64, 128, 256, 512, 1024)
+        for L in (64, 128, 256, 512, 1024) for P in (1, 2, 4, 8)]
+    for N, L, P in shapes:
+        per = cuda_poa.columns_per_thread(L)
+        threads = cuda_poa.launch_threads(L)
+        assert threads <= 1024 and threads * per >= L + 1
+        assert cuda_poa.smem_bytes(threads * per, N, P) <= 227 * 1024

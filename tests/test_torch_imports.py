@@ -1,7 +1,11 @@
-"""The port imports no JAX; asking it for the device path without CUDA
-fails loudly; its kernel wrappers never fall back for a tensor that is
-not on the CPU."""
+"""The port imports no JAX and nothing of the JAX package (hypo_tpu),
+and neither does chip_smoke.py; the port builds its native host
+libraries into its git-ignored _build/ directory; asking it for the
+device path without CUDA fails loudly; its kernel wrappers never fall
+back for a tensor that is not on the CPU."""
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -33,6 +37,55 @@ def test_port_imports_no_jax():
     assert r.stdout.strip() == "[]"
 
 
+def test_port_stands_alone(tmp_path):
+    """Every module of the port imported, a tiny simulation polished by
+    its command line with the host engine (native host library): no
+    module of hypo_tpu, jax or jaxlib was loaded."""
+    code = f"""
+import importlib, os, pkgutil, sys
+import hypo_tpu_torch
+for mod in pkgutil.walk_packages(hypo_tpu_torch.__path__, "hypo_tpu_torch."):
+    importlib.import_module(mod.name)
+from hypo_tpu_torch import cli, sim
+from hypo_tpu_torch.native import host_api
+assert host_api.available()
+d = {str(tmp_path)!r}
+p = sim.simulate(sim.SimConfig(genome_size=6000, seed=2), d)
+cli.main(["-r", p["reads"], "-d", p["draft"], "-b", p["sr_bam"], "-c", "30",
+          "-s", "6000", "--no-device-poa", "-o", os.path.join(d, "out.fa")])
+assert os.path.getsize(os.path.join(d, "out.fa")) > 5000
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("hypo_tpu", "jax", "jaxlib")))
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+    build = os.path.join(ROOT, "hypo_tpu_torch", "_build")
+    for lib in ("libhypo_host.so", "libhypo_poa.so", "libhypo_bam.so"):
+        assert os.path.exists(os.path.join(build, lib)), lib
+    native = os.path.join(ROOT, "hypo_tpu_torch", "native")
+    assert not [f for f in os.listdir(native) if f.endswith(".so")]
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """No import of hypo_tpu or jax, and no string naming a module of
+    hypo_tpu (as in ``-m hypo_tpu.cli``), in chip_smoke.py."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        for name in names:
+            assert name.split(".")[0] not in ("hypo_tpu", "jax", "jaxlib"), \
+                name
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert not re.fullmatch(r"hypo_tpu(\.\w+)*", node.value), \
+                node.value
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -42,14 +95,14 @@ def cuda_device():
 
 @pytest.fixture
 def cli_inputs(tmp_path):
-    """Files that pass the CLI's existence checks; polishing stops
-    before reading them."""
+    """Files that pass the CLI's existence checks (lr.bam too, for -B);
+    polishing stops before reading them."""
     paths = []
-    for name in ("reads.fq", "draft.fa", "sr.bam"):
+    for name in ("reads.fq", "draft.fa", "sr.bam", "lr.bam"):
         p = tmp_path / name
         p.write_text("")
         paths.append(str(p))
-    reads, draft, bam = paths
+    reads, draft, bam, _lr = paths
     return ["-m", "hypo_tpu_torch.cli", "-r", reads, "-d", draft, "-b", bam,
             "-c", "30", "-s", "8k", "-o", str(tmp_path / "out.fa")]
 
@@ -58,11 +111,22 @@ def cli_inputs(tmp_path):
     (["--device-poa"], "CUDA"),
     (["--device-poa", "--device-poa-mode", "exact"], "CUDA"),
     (["--nproc", "2"], "not ported"),
+    # scores the DP kernel's int16 cells cannot hold at the mode's largest
+    # shape (full: N 1024 + L 510; exact: N 1024 + L 1024), refused before
+    # any host stage; scores a mode does not launch are not checked
+    (["--device-poa", "-m", "22"], "int16"),
+    (["--device-poa", "-m", "21"], "CUDA"),
+    (["--device-poa", "--device-poa-mode", "exact", "-g", "-16"], "int16"),
+    (["--device-poa", "--device-poa-mode", "exact", "-B", "LR", "-M", "16"],
+     "int16"),
+    (["--device-poa", "--device-poa-mode", "exact", "-M", "16"], "CUDA"),
+    (["--device-poa", "-B", "LR", "-M", "30"], "CUDA"),
 ])
 def test_cli_refuses_what_it_cannot_run(cli_inputs, extra, message):
     if message == "CUDA" and torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    r = _run(cli_inputs + extra)
+    lr = os.path.join(os.path.dirname(cli_inputs[-1]), "lr.bam")
+    r = _run(cli_inputs + [lr if a == "LR" else a for a in extra])
     assert r.returncode != 0
     assert message in r.stderr
     assert not os.path.exists(cli_inputs[-1])
