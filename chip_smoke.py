@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (hypo_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--dp-baseline OLD_poa_dp.cu]
+    python3 chip_smoke.py [--baseline OLD_poa_dp.cu OLD_poa_tb.cu]
 
 Phases, each raising on failure (so the script exits non-zero and never
 prints its last line):
@@ -22,15 +22,22 @@ prints its last line):
      Each kernel's bound at each shape, from this run's inputs: the
      larger of the bytes it must move over 3.35 TB/s and its int32
      operations over 132 SMs x 64 lanes x the card's clocks.max.sm.
-     ``--dp-baseline`` also times an earlier DP kernel source at all six
-     shapes, in turns with this one (baseline, this, this, baseline);
+     ``--baseline`` takes earlier sources of kernel 1 (csrc/poa_dp.cu)
+     and kernel 3 (csrc/poa_tb.cu), told apart by the entry they
+     export, and times each at its shapes in turns with this one
+     (baseline, this, this, baseline);
   4. consensus kernel vs its plain version on the rank arrays of a real
      tile of each shape class (class 0: B=2048, N=256, L=126; class 1:
      B=256, N=1024, L=510; random windows merged by the port's arm
-     steps): exact equality, median times;
+     steps): exact equality, median times; and the traceback kernel's
+     tile emitter (the tile program's walk) vs its plain version on
+     the bp of that tile's arm steps (the first two, the middle one and
+     the last; rows above n_nodes hold what kernel 1 left there), with
+     matched rebuilt from exact mode's emitter on the same inputs:
+     exact equality, median times at the third step;
   5. each tile through the tile program vs the NumPy spec
      hypo_tpu_torch.poa.colpoa_ref.ColPoa on every window without
-     overflow (at least 256 / 128 of them); both kernels' launch
+     overflow (at least 256 / 128 of them); the three kernels' launch
      counters > 0; how many rows the DP kernel keeps in its int16
      device-memory copy (rows read from beyond its ring) over the
      tile's arm steps; then where the class-0 tile's time goes: per-step
@@ -55,7 +62,11 @@ prints its last line):
 Phases 6-8 run the port in this process, every launch counter set to 0
 just before each run and read just after.  Nothing of hypo_tpu or jax
 is imported or run.  Tolerance everywhere: 0 (every compared value is
-an integer).
+an integer).  A kernel's time is its device time per call under
+torch.profiler; beside it, its time per call between CUDA events over
+back-to-back calls, which also holds the wrapper's host work and is
+that work's time where the kernel is shorter.  A plain version's time
+is the latter (median of REPS samples).
 
 The last lines are the card (nvidia-smi name, power limit), one JSON
 object describing each kernel, and
@@ -85,15 +96,20 @@ from hypo_tpu_torch.poa import device_full as TF
 from hypo_tpu_torch.poa.cuda_consensus import heaviest_bundle
 from hypo_tpu_torch.poa import cuda_poa
 from hypo_tpu_torch.poa.cuda_poa import poa_dp_batch
-from hypo_tpu_torch.poa.cuda_tb import poa_tb_batch
-from hypo_tpu_torch.poa.dp import poa_dp_batch_ref, poa_tb_batch_ref
+from hypo_tpu_torch.poa.cuda_tb import poa_tb_batch, poa_tb_matched
+from hypo_tpu_torch.poa.dp import (poa_dp_batch_ref, poa_tb_batch_ref,
+                                   poa_tb_matched_ref)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCORES = dict(m=5, n=-4, g=-8)
 LONG_SCORES = dict(m=3, n=-5, g=-4)
 KERNELS = ("poa_dp", "poa_tb", "consensus")
-COUNTERS = {"poa_dp": poa_dp_batch, "poa_tb": poa_tb_batch,
-            "consensus": heaviest_bundle}
+# each kernel's wrappers; kernel 3 has one for each emitter
+COUNTERS = {"poa_dp": (poa_dp_batch,),
+            "poa_tb": (poa_tb_batch, poa_tb_matched),
+            "consensus": (heaviest_bundle,)}
+# the C entry by which a --baseline source is known as a kernel's
+BASELINE_ENTRY = {"poa_dp": "hypo_poa_dp", "poa_tb": "hypo_poa_tb"}
 REPS = 5
 KERNEL_INNER = 10
 POA_RE = re.compile(r"POA over (\d+) windows\. \[([0-9.]+) sec")
@@ -124,6 +140,32 @@ def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
     return float(np.median(ts))
 
 
+def kernel_ms(fn) -> tuple:
+    """(device ms, call ms) per call of a kernel wrapper fn(): the summed
+    durations of the device kernels that KERNEL_INNER * REPS calls launch
+    under torch.profiler (CUDA activity only), over the calls, after one
+    warm-up; and cuda_ms's time per call.  The call time also holds the
+    wrapper's host work (argument checks, allocation, the ctypes
+    launch), and is that work's time where the kernel is shorter."""
+    from torch.profiler import ProfilerActivity, profile
+    calls = KERNEL_INNER * REPS
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        raise RuntimeError("torch.profiler saw no device kernel")
+    return sum(spans) / 1e3 / calls, cuda_ms(fn, inner=KERNEL_INNER)
+
+
+def launch_counts() -> dict:
+    return {k: sum(w.launches for w in ws) for k, ws in COUNTERS.items()}
+
+
 def smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -148,17 +190,17 @@ def phase_env() -> str:
 
 # -- 2. build -----------------------------------------------------------------
 
-def phase_build(baseline) -> None:
+def phase_build(baselines) -> dict:
     """Every CUDA kernel with nvcc and the three native host libraries
-    with g++, one compiler each, all started together; ``baseline``
-    (a .cu file or None) adds an earlier DP kernel for comparison."""
+    with g++, one compiler each, all started together; ``baselines``
+    (.cu files) add earlier kernel sources for comparison.  Returns
+    {kernel: loaded baseline library} by the entry each exports."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hypo_tpu_torch.native import api, bam_api, host_api
     jobs = [(name, _build.load, (name,)) for name in KERNELS]
-    if baseline:
-        jobs.append(("poa_dp_baseline", _build.load,
-                     ("poa_dp_baseline", baseline)))
+    jobs += [(f"baseline{k}", _build.load, (f"baseline{k}", src))
+             for k, src in enumerate(baselines)]
     jobs += [(mod.__name__, mod.available, ()) for mod in
              (host_api, api, bam_api)]
     t0 = time.time()
@@ -175,6 +217,16 @@ def phase_build(baseline) -> None:
             if re.search(r"entry function|registers|spill|smem|error|"
                          r"warning", line):
                 log("  " + line.strip())
+    found = {}
+    for k, src in enumerate(baselines):
+        lib = _build.load(f"baseline{k}", src)
+        kern = [n for n, e in BASELINE_ENTRY.items() if hasattr(lib, e)]
+        if len(kern) != 1:
+            raise RuntimeError(f"baseline {src}: exports none or several "
+                               f"of {sorted(BASELINE_ENTRY.values())}")
+        found[kern[0]] = lib
+        log(f"baseline of {kern[0]}: {src}")
+    return found
 
 
 # -- 3. DP kernel vs plain ----------------------------------------------------
@@ -330,29 +382,68 @@ def dp_diff(out, ref, nn, N) -> int:
     return max(bp_diff, (out[1] - ref[1]).abs().amax().item())
 
 
+def in_turns(what: str, run_old, run_new) -> dict:
+    """A kernel against its baseline on the same inputs, timed in turns
+    (baseline, kernel, kernel, baseline): device and call times."""
+    t = [kernel_ms(f) for f in (run_old, run_new, run_new, run_old)]
+    old_ms, new_ms = (t[0][0] + t[3][0]) / 2, (t[1][0] + t[2][0]) / 2
+    old_call, new_call = (t[0][1] + t[3][1]) / 2, (t[1][1] + t[2][1]) / 2
+    log(f"{what} (in turns: baseline, this, this, baseline): device "
+        f"baseline kernel {t[0][0]:.4f} / {t[3][0]:.4f} ms, this kernel "
+        f"{t[1][0]:.4f} / {t[2][0]:.4f} ms: {old_ms / new_ms:.2f}x; per call "
+        f"{t[0][1]:.4f} / {t[3][1]:.4f} ms against {t[1][1]:.4f} / "
+        f"{t[2][1]:.4f} ms: {old_call / new_call:.2f}x")
+    return dict(baseline_ms=old_ms, new_ms=new_ms, baseline_call_ms=old_call,
+                new_call_ms=new_call)
+
+
 def dp_versions(name, args, kw, ref, baseline) -> dict:
-    """The kernel against the baseline kernel on the same inputs, timed
-    in turns (baseline, kernel, kernel, baseline), the baseline checked
-    against the plain version's output ``ref`` first."""
+    """Kernel 1 against the baseline kernel on the same inputs, in turns,
+    the baseline checked against the plain version's output ``ref``
+    first."""
+    if baseline is None:
+        return {}
     N, L, P = kw["N"], kw["L"], kw["P"]
-    nn = args[4]
-    out = {}
-    if baseline is not None:
-        sc = {k: kw[k] for k in ("m", "n", "g")}
-        diff = dp_diff(baseline_dp(baseline, args, N, L, P, **sc), ref, nn,
-                       N)
-        if diff:
-            raise RuntimeError(f"baseline DP != plain on {name}: {diff}")
-        run_new = lambda: poa_dp_batch(*args, **kw)  # noqa: E731
-        run_old = lambda: baseline_dp(baseline, args, N, L, P,  # noqa
-                                      **sc)
-        t = [cuda_ms(f, inner=KERNEL_INNER)
-             for f in (run_old, run_new, run_new, run_old)]
-        out.update(baseline_ms=(t[0] + t[3]) / 2, new_ms=(t[1] + t[2]) / 2)
-        log(f"DP {name}: baseline kernel {t[0]:.3f} / {t[3]:.3f} ms, this "
-            f"kernel {t[1]:.3f} / {t[2]:.3f} ms (in turns: baseline, this, "
-            f"this, baseline): {out['baseline_ms'] / out['new_ms']:.2f}x")
-    return out
+    sc = {k: kw[k] for k in ("m", "n", "g")}
+    diff = dp_diff(baseline_dp(baseline, args, N, L, P, **sc), ref, args[4],
+                   N)
+    if diff:
+        raise RuntimeError(f"baseline DP != plain on {name}: {diff}")
+    return in_turns(f"DP {name}", lambda: baseline_dp(baseline, args, N, L, P,
+                                                      **sc),
+                    lambda: poa_dp_batch(*args, **kw))
+
+
+def baseline_tb(lib, tb_args, N, L, P):
+    """An earlier kernel 3 through its exact-mode entry (same contract)."""
+    B = tb_args[0].shape[0]
+    dev = tb_args[0].device
+    S = N + L + 1
+    ti = torch.empty((B, S), dtype=torch.int16, device=dev)
+    tj = torch.empty((B, S), dtype=torch.int16, device=dev)
+    steps = torch.empty((B,), dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.hypo_poa_tb.restype = ci
+    lib.hypo_poa_tb.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    p = _build.ptr
+    rc = lib.hypo_poa_tb(*(p(x) for x in tb_args), p(ti), p(tj), p(steps), B,
+                         N, L, P, ctypes.c_void_p(
+                             torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, rc, "baseline poa_tb launch")
+    return ti, tj, steps
+
+
+def tb_versions(name, tb_args, N, L, P, ref, baseline) -> dict:
+    """Kernel 3 (exact emitter) against the baseline kernel, in turns, the
+    baseline checked against the plain version's output ``ref`` first."""
+    if baseline is None:
+        return {}
+    got = baseline_tb(baseline, tb_args, N, L, P)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise RuntimeError(f"baseline traceback != plain on {name}")
+    return in_turns(f"traceback {name}",
+                    lambda: baseline_tb(baseline, tb_args, N, L, P),
+                    lambda: poa_tb_batch(*tb_args, N=N, L=L, P=P))
 
 
 def phase_dp(rng, dev, baseline) -> dict:
@@ -371,17 +462,19 @@ def phase_dp(rng, dev, baseline) -> dict:
         if err:
             raise RuntimeError(f"DP kernel != plain on {name}: max |diff| "
                                f"{err} (bp rows <= n_nodes, max_row)")
-        ms = cuda_ms(lambda: poa_dp_batch(*args, **kw), inner=KERNEL_INNER)
+        ms, call_ms = kernel_ms(lambda: poa_dp_batch(*args, **kw))
         plain_ms = cuda_ms(lambda: poa_dp_batch_ref(*args, **kw))
         cells = int(nn.sum().item()) * (L + 1)
         bd = dp_bound(args, N, L, P)
         log(f"DP {name} B={B} N={N} L={L} P={P}: equal (bp rows <= n_nodes,"
-            f" max_row); kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} "
-            f"Gcells/s), plain {plain_ms:.3f} ms; bound {bd['bound_ms']:.4f}"
+            f" max_row); kernel {ms:.4f} ms ({cells / ms / 1e6:.2f} "
+            f"Gcells/s; {call_ms:.4f} ms a call), plain {plain_ms:.3f} ms; "
+            f"bound {bd['bound_ms']:.4f}"
             f" ms by {bd['bound_by']} ({bd['bytes'] / 1e6:.1f} MB, "
             f"{bd['ops'] / 1e9:.3f} Gop): {bd['bound_ms'] / ms:.3f} of it; "
             + launch_note(N, L, P))
-        res[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+        res[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         max_abs_err=err,
                          bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
                          **dp_versions(name, args, kw, ref, baseline))
     return res
@@ -393,18 +486,21 @@ EXACT_BUCKETS = (("exact_N64_L64_P1", 4096, 64, 64, 1, SCORES),
                  ("exact_N1024_L1024_P4", 8, 1024, 1024, 4, LONG_SCORES))
 
 
-def tb_bound(steps, N, L) -> dict:
+def tb_bound(steps, N, L, matched: bool = False) -> dict:
     """Kernel 3's bound on these inputs: per step the bp cell and the
     predecessor entry it reads (1 + 4 bytes) and about 10 int32
-    operations; per window three scalars read and ti, tj (S = N + L + 1
-    int16 each) and steps written."""
+    operations; per window three scalars read and, for exact mode, ti,
+    tj (S = N + L + 1 int16 each) and steps written, or for the tile
+    walk the active flag read and matched (L int32) written.  ``steps``
+    [B] counts each window's walk (0 for a window not active)."""
     B = steps.numel()
     total = int(steps.sum())
     S = N + L + 1
-    return bound(5 * total + 12 * B + B * (4 * S + 4), 10 * total)
+    per_window = 12 + (1 + 4 * L if matched else 4 * S + 4)
+    return bound(5 * total + B * per_window, 10 * total)
 
 
-def phase_exact_dp(rng, dev, baseline) -> tuple:
+def phase_exact_dp(rng, dev, baselines) -> tuple:
     """Kernels 1 and 3 against their plain versions at exact mode's
     buckets.  Every window is active, as in exact mode (it launches
     groups at their exact size).  Kernel 3 and the plain traceback walk
@@ -436,11 +532,10 @@ def phase_exact_dp(rng, dev, baseline) -> tuple:
                 f"exact {name}: kernel != plain (max |diff| bp {bp_diff}, "
                 f"max_row {mr_diff}, traceback {tb_diff}, DP+traceback "
                 f"chain {chain_diff})")
-        dp_ms = cuda_ms(lambda: poa_dp_batch(*args, **kw),
-                        inner=KERNEL_INNER)
+        dp_ms, dp_call = kernel_ms(lambda: poa_dp_batch(*args, **kw))
         dp_plain = cuda_ms(lambda: poa_dp_batch_ref(*args, **kw))
-        tb_ms = cuda_ms(lambda: poa_tb_batch(*tb_args, N=N, L=L, P=P),
-                        inner=KERNEL_INNER)
+        tb_ms, tb_call = kernel_ms(lambda: poa_tb_batch(*tb_args, N=N, L=L,
+                                                        P=P))
         tb_plain = cuda_ms(lambda: poa_tb_batch_ref(*tb_args, N=N, L=L,
                                                     P=P))
         steps = out_k[2]
@@ -452,17 +547,20 @@ def phase_exact_dp(rng, dev, baseline) -> tuple:
             + launch_note(N, L, P))
         log(f"exact {name} B={B}: equal (bp rows <= n_nodes, max_row, ti, "
             f"tj, steps; steps mean {steps.float().mean().item():.0f} max "
-            f"{int(steps.max())}); DP kernel {dp_ms:.3f} ms, plain "
-            f"{dp_plain:.3f} ms; traceback kernel {tb_ms:.3f} ms, plain "
+            f"{int(steps.max())}); DP kernel {dp_ms:.4f} ms ({dp_call:.4f} "
+            f"ms a call), plain {dp_plain:.3f} ms; traceback kernel "
+            f"{tb_ms:.4f} ms ({tb_call:.4f} ms a call), plain "
             f"{tb_plain:.3f} ms")
-        dp[name] = dict(ms=dp_ms, plain_ms=dp_plain,
+        dp[name] = dict(ms=dp_ms, call_ms=dp_call, plain_ms=dp_plain,
                         max_abs_err=max(bp_diff, mr_diff),
                         bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
                         **dp_versions(name, args, kw, (bp_p, mr_p),
-                                      baseline))
-        tb[name] = dict(ms=tb_ms, plain_ms=tb_plain,
+                                      baselines.get("poa_dp")))
+        tb[name] = dict(ms=tb_ms, call_ms=tb_call, plain_ms=tb_plain,
                         max_abs_err=max(tb_diff, chain_diff),
-                        bound_ms=bt["bound_ms"], bound_by=bt["bound_by"])
+                        bound_ms=bt["bound_ms"], bound_by=bt["bound_by"],
+                        **tb_versions(name, tb_args, N, L, P, out_p,
+                                      baselines.get("poa_tb")))
     return dp, tb
 
 
@@ -541,6 +639,63 @@ def cons_bound(cargs, N, P) -> dict:
                  4 * n_preds + 4 * n_rows)
 
 
+def matched_from_exact(ti, tj, steps, active, L):
+    """matched [B, L] rebuilt from exact mode's emitter: each step that
+    consumed a query base j records its rank (or -1) at j."""
+    B, S = ti.shape
+    t = torch.arange(S, device=ti.device)[None, :]
+    ok = (t < steps[:, None]) & (tj >= 0)
+    out = torch.full((B, L + 1), -1, dtype=torch.int32, device=ti.device)
+    out.scatter_(1, torch.where(ok, tj.long(), L), ti.int())
+    return torch.where(active[:, None], out[:, :L], -1)
+
+
+def phase_tile_walk(name, calls, N, L, P) -> dict:
+    """Kernel 3's tile emitter against its plain version (the lockstep
+    walk the tile program ran before) on the recorded arm steps' inputs,
+    and against matched rebuilt from the exact emitter on the same
+    inputs; times at the third arm step, the first with every window
+    active and a graph of two arms."""
+    kw = dict(N=N, L=L, P=P)
+    kmax = len(calls)
+    checked = sorted({0, 1, min(2, kmax - 1), kmax // 2, kmax - 1})
+    err = 0
+    for k in checked:
+        args = calls[k]
+        bp, pred_rows, arm_len, mode, max_row, active = args
+        out_k = poa_tb_matched(*args, **kw)
+        out_p = poa_tb_matched_ref(*args, **kw)
+        rebuilt = matched_from_exact(
+            *poa_tb_batch(bp, pred_rows, max_row, arm_len, mode, **kw),
+            active, L)
+        torch.cuda.synchronize()
+        diff = max((out_k - out_p).abs().amax().item(),
+                   (rebuilt - out_p).abs().amax().item())
+        if diff:
+            raise RuntimeError(f"{name} tile walk, arm step {k}: kernel != "
+                               f"plain (max |diff| {diff}, matched and "
+                               f"matched rebuilt from exact mode's emitter)")
+        err = max(err, diff)
+    args = calls[min(2, kmax - 1)]
+    bp, pred_rows, arm_len, mode, max_row, active = args
+    steps = poa_tb_batch(bp, pred_rows, max_row, arm_len, mode, **kw)[2]
+    steps = torch.where(active, steps, 0)
+    ms, call_ms = kernel_ms(lambda: poa_tb_matched(*args, **kw))
+    plain_ms = cuda_ms(lambda: poa_tb_matched_ref(*args, **kw))
+    bd = tb_bound(steps, N, L, matched=True)
+    log(f"tile walk {name} B={bp.shape[0]} N={N} L={L} P={P}: equal at arm "
+        f"steps {checked} of {kmax} (matched, and rebuilt from exact mode's "
+        f"emitter); at step {min(2, kmax - 1)} ({int(active.sum())} active, "
+        f"walk steps mean {steps.float().mean().item():.0f} max "
+        f"{int(steps.max())}): kernel {ms:.4f} ms ({call_ms:.4f} ms a "
+        f"call), plain (the lockstep loop) {plain_ms:.3f} ms; bound "
+        f"{bd['bound_ms']:.5f} ms by "
+        f"{bd['bound_by']} ({bd['bytes'] / 1e6:.2f} MB): "
+        f"{bd['bound_ms'] / ms:.4f} of it")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
+                bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
+
+
 def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
     K, P = 16, 8
     t0 = time.time()
@@ -549,11 +704,26 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
     log(f"{name} tile: {B} windows, {len(pool)} arms, L={L} N={N} (made in "
         f"{time.time() - t0:.1f} s)")
     steps = dict(N=N, L=L, P=P, device=dev, **SCORES)
+    # the inputs of every arm step's walk, for the tile-walk phase
+    calls = []
+    walk = TF._traceback_matched_batch
+
+    def record(bp, pred_rows, arm_len, mode, max_row, *, active, **kw):
+        calls.append((bp, pred_rows, arm_len, mode, max_row, active))
+        return walk(bp, pred_rows, arm_len, mode, max_row, active=active,
+                    **kw)
+
+    TF._traceback_matched_batch = record
     t0 = time.time()
-    st = TF.run_arm_steps(pool, plen, idx, amode, aw, narms, **steps)
-    torch.cuda.synchronize()
+    try:
+        st = TF.run_arm_steps(pool, plen, idx, amode, aw, narms, **steps)
+        torch.cuda.synchronize()
+    finally:
+        TF._traceback_matched_batch = walk
     log(f"{name} tile arm steps ({int(narms.max())}): "
         f"{time.time() - t0:.2f} s; nodes max {int(st.n_nodes.max())}")
+    tb = phase_tile_walk(name, calls, N, L, P)
+    del calls
 
     # 4. consensus kernel vs plain on the final graphs' rank arrays
     ra = TF._rank_arrays_batch(st, N)
@@ -567,12 +737,12 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
     if err:
         raise RuntimeError(f"consensus kernel != plain on {name}: max diff "
                            f"{err}")
-    ms = cuda_ms(lambda: heaviest_bundle(*cargs, N=N, P=P),
-                 inner=KERNEL_INNER)
+    ms, call_ms = kernel_ms(lambda: heaviest_bundle(*cargs, N=N, P=P))
     plain_ms = cuda_ms(lambda: TF._consensus_wavefront(*cargs, N=N, P=P))
     bd = cons_bound(cargs, N, P)
     log(f"consensus {name} B={B} N={N} P={P}: equal (codes, supports, "
-        f"lengths); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+        f"lengths); kernel {ms:.4f} ms ({call_ms:.4f} ms a call), plain "
+        f"{plain_ms:.3f} ms; bound "
         f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bytes'] / 1e6:.1f}"
         f" MB): {bd['bound_ms'] / ms:.3f} of it")
 
@@ -609,13 +779,15 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
     log(f"{name} tile vs ColPoa: all {len(ok)} windows without overflow "
         f"equal ({int(ovf.sum())} of {B} overflowed; spec "
         f"{time.time() - t0:.1f} s)")
-    launches = (poa_dp_batch.launches, heaviest_bundle.launches)
-    log(f"launch counters so far: DP {launches[0]}, consensus "
-        f"{launches[1]}")
-    if min(launches) <= 0:
+    launches = launch_counts()
+    log(f"launch counters so far: {launches} (kernel 3's tile emitter "
+        f"{poa_tb_matched.launches})")
+    if min(launches.values()) <= 0 or poa_tb_matched.launches <= 0:
         raise RuntimeError("a kernel was never launched")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, tile=tile,
-                targs=targs, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
+                tile=tile,
+                targs=targs, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                tb=tb)
 
 
 def phase_profile(tile, targs) -> None:
@@ -738,8 +910,9 @@ def run_port(argv, no_native: bool = False):
     HYPO_TPU_NO_NATIVE=1 for the run.  Returns (stats, launches,
     (windows, POA seconds, total seconds), wall seconds)."""
     from hypo_tpu_torch import cli
-    for counted in COUNTERS.values():
-        counted.launches = 0
+    for wrappers in COUNTERS.values():
+        for w in wrappers:
+            w.launches = 0
     buf = io.StringIO()
     old = sys.stderr
     sys.stderr = _Tee(old, buf)
@@ -753,7 +926,7 @@ def run_port(argv, no_native: bool = False):
         sys.stderr = old
         os.environ.pop("HYPO_TPU_NO_NATIVE", None)
     wall = time.time() - t0
-    launches = {k: c.launches for k, c in COUNTERS.items()}
+    launches = launch_counts()
     return (polisher.device_runner.stats, launches,
             stage_times(buf.getvalue()), wall)
 
@@ -837,8 +1010,7 @@ def phase_e2e(tmp: str, genome_size: int = 4_000_000) -> dict:
     log_times("e2e host engine (--no-device-poa)", host_times)
     check_qv("e2e", sim, out)
     same_md5("e2e", sim, _md5(out), md5_host)
-    check_launches("e2e (full mode, 4 Mbp)", launches,
-                   ("poa_dp", "consensus"))
+    check_launches("e2e (full mode, 4 Mbp)", launches, KERNELS)
     return launches
 
 
@@ -902,8 +1074,7 @@ def phase_exact_e2e(tmp: str, genome_size: int = 1_000_000) -> tuple:
     log_times("hybrid full-mode port (--device-poa)", times, wall)
     log_tiles("hybrid full-mode port", stats)
     same_md5("hybrid full mode", sim, _md5(out), md5_host)
-    check_launches("full mode (1 Mbp hybrid)", full_launches,
-                   ("poa_dp", "consensus"))
+    check_launches("full mode (1 Mbp hybrid)", full_launches, KERNELS)
     return launches, full_launches
 
 
@@ -921,17 +1092,18 @@ def phase_no_native(tmp: str, genome_size: int = 200_000) -> dict:
     log_tiles("no-native port", stats)
     log_times("no-native host engine (native, --no-device-poa)", host_times)
     same_md5("no-native", sim, _md5(out), md5_host)
-    check_launches("no-native (200 kbp hybrid)", launches,
-                   ("poa_dp", "consensus"))
+    check_launches("no-native (200 kbp hybrid)", launches, KERNELS)
     return launches
 
 
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--dp-baseline", metavar="CU",
-                    help="an earlier csrc/poa_dp.cu to time kernel 1 "
-                         "against, in the same run, at all six shapes")
+    ap.add_argument("--baseline", metavar="CU", nargs="+", default=[],
+                    help="earlier sources of csrc/poa_dp.cu and/or "
+                         "csrc/poa_tb.cu, each timed in turns with the "
+                         "kernel it exports the entry of, in the same "
+                         "run, at that kernel's shapes")
     return ap.parse_args(argv)
 
 
@@ -940,12 +1112,11 @@ def main() -> None:
     card = phase_env()
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(20261016)
-    phase_build(opts.dp_baseline)
-    baseline = (_build.load("poa_dp_baseline", opts.dp_baseline)
-                if opts.dp_baseline else None)
-    dp = phase_dp(rng, dev, baseline)
-    exact_dp, exact_tb = phase_exact_dp(rng, dev, baseline)
+    baselines = phase_build(opts.baseline)
+    dp = phase_dp(rng, dev, baselines.get("poa_dp"))
+    exact_dp, exact_tb = phase_exact_dp(rng, dev, baselines)
     cons = {t[0]: phase_tile(rng, dev, *t) for t in TILES}
+    tile_tb = {k: v.pop("tb") for k, v in cons.items()}
     phase_profile(cons["class0"]["tile"], cons["class0"]["targs"])
     with tempfile.TemporaryDirectory(prefix="hypo_chip_smoke_") as tmp:
         paths = {"full_4mbp": phase_e2e(tmp)}
@@ -954,7 +1125,7 @@ def main() -> None:
         paths["no_native_200kbp_hybrid"] = phase_no_native(tmp)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
-    cons = {k: {f: v[f] for f in ("ms", "plain_ms", "max_abs_err",
+    cons = {k: {f: v[f] for f in ("ms", "call_ms", "plain_ms", "max_abs_err",
                                    "bound_ms", "bound_by")}
             for k, v in cons.items()}
 
@@ -978,8 +1149,9 @@ def main() -> None:
         entry("poa_dp", "poa_dp", "hypo_tpu/poa/pallas_poa.py:259",
               "full_4mbp", "class0_multi", {**dp, **exact_dp}),
         entry("poa_tb", "poa_tb",
-              "hypo_tpu/poa/jax_poa.py:85-116 (XLA, no Pallas kernel)",
-              "exact_1mbp_hybrid", "exact_N64_L64_P1", exact_tb),
+              "hypo_tpu/poa/jax_poa.py:85-116 and "
+              "hypo_tpu/poa/device_full.py:247-307 (XLA, no Pallas kernel)",
+              "full_4mbp", "class0", {**tile_tb, **exact_tb}),
         entry("heaviest_bundle", "consensus",
               "hypo_tpu/poa/pallas_consensus.py:191", "full_4mbp",
               "class0", cons),

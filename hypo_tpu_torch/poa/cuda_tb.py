@@ -1,11 +1,15 @@
-"""Kernel 3: the backpointer traceback (csrc/poa_tb.cu), replacing the
-XLA while_loop of hypo_tpu/poa/jax_poa.py:poa_dp_tb_batch (:85-116);
-and ``poa_dp_tb_batch``, exact mode's device call: kernel 1 (the DP,
+"""Kernel 3: the backpointer traceback (csrc/poa_tb.cu), one walk with
+two emitters.  ``poa_tb_batch`` (exact mode's emitter) replaces the XLA
+while_loop of hypo_tpu/poa/jax_poa.py:poa_dp_tb_batch (:85-116);
+``poa_tb_matched`` (the tile program's walk) replaces
+hypo_tpu/poa/device_full.py:_traceback_matched_batch (:247-307).
+``poa_dp_tb_batch`` is exact mode's device call: kernel 1 (the DP,
 poa.cuda_poa) then kernel 3.
 
-``poa_tb_batch`` takes the plain version (poa.dp.poa_tb_batch_ref) only
-for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  ``poa_tb_batch.launches`` counts kernel launches.
+Each wrapper takes its plain version (poa.dp.poa_tb_batch_ref,
+poa.dp.poa_tb_matched_ref) only for tensors on the CPU; for CUDA tensors
+it launches the kernel or raises.  Each counts its kernel launches in
+its ``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 
 from .. import _build
 from .cuda_poa import poa_dp_batch
-from .dp import poa_tb_batch_ref
+from .dp import poa_tb_batch_ref, poa_tb_matched_ref
 
 # bound on one launch's DP scratch (H int32 + bp int8, 5 bytes a cell);
 # a larger batch is cut into launches of at most this much
@@ -28,6 +32,8 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.hypo_poa_tb.restype = ci
         lib.hypo_poa_tb.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+        lib.hypo_poa_tb_matched.restype = ci
+        lib.hypo_poa_tb_matched.argtypes = [vp] * 7 + [ci] * 4 + [vp]
         lib._typed = True
     return lib
 
@@ -68,6 +74,43 @@ def poa_tb_batch(bp, pred_rows, max_row, arm_len, mode, *, N: int, L: int,
 
 
 poa_tb_batch.launches = 0
+
+
+def poa_tb_matched(bp, pred_rows, arm_len, mode, max_row, active, *, N: int,
+                   L: int, P: int):
+    """Returns matched int32 [B, L]: the rank of the graph node arm base
+    j aligned to, or -1; the contract of poa.dp.poa_tb_matched_ref."""
+    B = bp.shape[0]
+    dev = bp.device
+    i32 = torch.int32
+    _build.expect(
+        "poa_tb_matched", dev,
+        bp=(bp, torch.int8, (B, N + 1, L + 1)),
+        pred_rows=(pred_rows, i32, (B, N, P)),
+        arm_len=(arm_len, i32, (B,)),
+        mode=(mode, i32, (B,)),
+        max_row=(max_row, i32, (B,)),
+        active=(active, torch.bool, (B,)))
+    if dev.type == "cpu":
+        return poa_tb_matched_ref(bp, pred_rows, arm_len, mode, max_row,
+                                  active, N=N, L=L, P=P)
+    if dev.type != "cuda":
+        raise ValueError(f"poa_tb_matched: no kernel for device {dev}")
+    lib = _load()
+    matched = torch.empty((B, L), dtype=i32, device=dev)
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hypo_poa_tb_matched(p(bp), p(pred_rows), p(arm_len),
+                                     p(mode), p(max_row), p(active),
+                                     p(matched), B, N, L, P,
+                                     ctypes.c_void_p(stream))
+    _build.check(lib, rc, "poa_tb_matched launch")
+    poa_tb_matched.launches += 1
+    return matched
+
+
+poa_tb_matched.launches = 0
 
 
 def poa_dp_tb_batch(node_code, pred_rows, pred_cnt, is_end, n_nodes, arm,

@@ -5,10 +5,10 @@ hypo_tpu.poa.colpoa_ref.
 A tile of B windows carries one fixed-shape graph state per window
 (``PoaState``, leading batch dimension B).  Each arm step ranks every
 graph, runs the graph-vs-arm DP (kernel 1, poa.cuda_poa), walks the
-backpointers and merges the arm; after the last step the heaviest-
-bundle consensus (kernel 2, poa.cuda_consensus) is curated and packed
-into nibbles.  Windows that overflow a cap get a sticky ``ovf`` flag
-and are re-run on the host engine by the runner.
+backpointers (kernel 3, poa.cuda_tb) and merges the arm; after the last
+step the heaviest-bundle consensus (kernel 2, poa.cuda_consensus) is
+curated and packed into nibbles.  Windows that overflow a cap get a
+sticky ``ovf`` flag and are re-run on the host engine by the runner.
 
 Where the JAX package expressed irregular indexing as one-hot compares
 and f32 matmuls (a TPU workaround, device_full.py:24-28, 105-142), this
@@ -27,9 +27,10 @@ from typing import NamedTuple
 
 import torch
 
-from . import BIG, NCODES, NEG, ROV
+from . import BIG, NCODES, NEG
 from .cuda_consensus import heaviest_bundle
 from .cuda_poa import poa_dp_batch
+from .cuda_tb import poa_tb_matched
 
 _I32 = torch.int32
 
@@ -142,51 +143,14 @@ def _rank_arrays_batch(st: PoaState, N: int) -> RankArrays:
         pred_w_r=perm(st.pred_w), is_end_r=perm(st.out_cnt) == 0)
 
 
-# the batched traceback checks for "all windows stopped" (a host sync)
-# only every this many steps; extra steps are no-ops for stopped windows
-_TB_CHECK_EVERY = 32
-
-
 def _traceback_matched_batch(bp, pred_rows, arm_len, mode, max_row, *,
                              active, N, L, P):
-    """Walk the backpointers of the whole batch in lockstep; returns
-    matched [B, L] i32: the rank of the graph node arm base j aligned to,
-    or -1 (insertion / unaligned head)."""
-    B = bp.shape[0]
-    dev = bp.device
-    bpf = bp.reshape(B, -1)
-    prf = pred_rows.reshape(B, -1)
-    ncell = (N + 1) * (L + 1)
-    rov = mode == ROV
-
-    def stop_of(i, j):
-        return torch.where(rov, (i == 0) | (j == 0), (i == 0) & (j == 0))
-
-    i, j = max_row, arm_len
-    stopped = stop_of(i, j) | ~active
-    # column L parks the writes of steps that consume no arm base
-    matched = torch.full((B, L + 1), -1, dtype=_I32, device=dev)
-    for t in range(N + L + 1):
-        if t % _TB_CHECK_EVERY == 0 and bool(stopped.all()):
-            break
-        code = _take(bpf, (i * (L + 1) + j).clamp(0, ncell - 1)).to(_I32)
-        is_vert = (code >= P) & (code < 2 * P)
-        is_horiz = code == 2 * P
-        pidx = torch.where(code < P, code, code - P).clamp(0, P - 1)
-        pred = _take(prf, (i - 1).clamp(min=0) * P + pidx)
-        prev_i = torch.where(is_horiz, i, pred)
-        prev_j = torch.where(is_vert, j, j - 1)
-        prev_i = torch.where(i == 0, 0, prev_i)
-        prev_j = torch.where(i == 0, j - 1, prev_j)
-        emit = (prev_j != j) & ~stopped & (j >= 1)     # a base consumed
-        diag = emit & (prev_i != i) & (i > 0)          # aligned to i-1
-        rec_j = torch.where(emit, j - 1, L)
-        rec_r = torch.where(diag, i - 1, -1).to(_I32)
-        matched.scatter_(1, rec_j[:, None].long(), rec_r[:, None])
-        i = torch.where(stopped, i, prev_i)
-        j = torch.where(stopped, j, prev_j)
-        stopped = stopped | stop_of(i, j)
-    return matched[:, :L]
+    """The backpointer walk of the whole batch: kernel 3's tile emitter
+    (poa.cuda_tb.poa_tb_matched, one launch; its plain version for CPU
+    tensors).  Returns matched [B, L] i32: the rank of the graph node
+    arm base j aligned to, or -1 (insertion / unaligned head)."""
+    return poa_tb_matched(bp, pred_rows, arm_len, mode, max_row, active,
+                          N=N, L=L, P=P)
 
 
 def _merge(st: PoaState, node_col_r, matched, arm, arm_len, w, *, N, L, P):

@@ -1,14 +1,16 @@
 """Plain PyTorch graph-vs-arm DP and traceback: the reference versions
 of the CUDA kernels csrc/poa_dp.cu (poa.cuda_poa.poa_dp_batch) and
-csrc/poa_tb.cu (poa.cuda_tb.poa_tb_batch), plus the host-side helpers
-of exact mode (hypo_tpu.poa.jax_poa:40-41, 184-191, 231-254, copied
-because jax_poa imports jax).
+csrc/poa_tb.cu (poa.cuda_tb.poa_tb_batch and poa_tb_matched, the
+traceback's two emitters), plus the host-side helpers of exact mode
+(hypo_tpu.poa.jax_poa:40-41, 184-191, 231-254, copied because jax_poa
+imports jax).
 
 Counterpart of hypo_tpu.poa.jax_poa.poa_dp_batch / _dp_one (:44-65,
-122-181), jax_poa.poa_dp_tb_batch (:68-119) and
-hypo_tpu.poa.device_full._dp (:196-244).  The vmap over windows is the
-batch dimension written out; the lax.scan over rows is a Python loop
-that stops at the largest graph of the batch, and the traceback's
+122-181), jax_poa.poa_dp_tb_batch (:68-119),
+hypo_tpu.poa.device_full._dp (:196-244) and
+device_full._traceback_matched_batch (:247-307).  The vmap over windows
+is the batch dimension written out; the lax.scan over rows is a Python
+loop that stops at the largest graph of the batch, and each traceback's
 while_loop a lockstep loop over the batch.
 
 Cells are int32 with the NEG16 sentinel of the Pallas kernel, so every
@@ -195,6 +197,56 @@ def poa_tb_batch_ref(bp, pred_rows, max_row, arm_len, mode, *, N: int,
         i = torch.where(live, prev_i, i)
         j = torch.where(live, prev_j, j)
     return ti, tj, steps
+
+
+def poa_tb_matched_ref(bp, pred_rows, arm_len, mode, max_row, active, *,
+                       N: int, L: int, P: int):
+    """The tile program's backpointer walk, the same walk as
+    poa_tb_batch_ref with another emitter: returns matched int32 [B, L],
+    the rank of the graph node arm base j aligned to, or -1 (insertion /
+    unaligned head).  A step emits when it consumes a base (its column
+    changes, j >= 1): the rank i - 1 if it is diagonal (the row changes
+    too, i > 0), else -1.  Windows not ``active`` (bool [B]) start
+    stopped, so their rows are all -1 whatever their bp holds."""
+    B = bp.shape[0]
+    dev = bp.device
+    bpf = bp.reshape(B, -1)
+    prf = pred_rows.reshape(B, -1)
+    ncell = (N + 1) * (L + 1)
+    rov = mode == ROV
+
+    def stop_of(i, j):
+        return torch.where(rov, (i == 0) | (j == 0), (i == 0) & (j == 0))
+
+    def take(x, idx):
+        return x.gather(1, idx[:, None].long())[:, 0]
+
+    i, j = max_row, arm_len
+    stopped = stop_of(i, j) | ~active
+    # column L parks the writes of steps that consume no arm base
+    matched = torch.full((B, L + 1), -1, dtype=torch.int32, device=dev)
+    for t in range(N + L + 1):
+        if t % _TB_CHECK_EVERY == 0 and bool(stopped.all()):
+            break
+        code = take(bpf, (i * (L + 1) + j).clamp(0, ncell - 1)).to(
+            torch.int32)
+        is_vert = (code >= P) & (code < 2 * P)
+        is_horiz = code == 2 * P
+        pidx = torch.where(code < P, code, code - P).clamp(0, P - 1)
+        pred = take(prf, (i - 1).clamp(min=0) * P + pidx)
+        prev_i = torch.where(is_horiz, i, pred)
+        prev_j = torch.where(is_vert, j, j - 1)
+        prev_i = torch.where(i == 0, 0, prev_i)
+        prev_j = torch.where(i == 0, j - 1, prev_j)
+        emit = (prev_j != j) & ~stopped & (j >= 1)     # a base consumed
+        diag = emit & (prev_i != i) & (i > 0)          # aligned to i-1
+        rec_j = torch.where(emit, j - 1, L)
+        rec_r = torch.where(diag, i - 1, -1).to(torch.int32)
+        matched.scatter_(1, rec_j[:, None].long(), rec_r[:, None])
+        i = torch.where(stopped, i, prev_i)
+        j = torch.where(stopped, j, prev_j)
+        stopped = stopped | stop_of(i, j)
+    return matched[:, :L]
 
 
 def poa_dp_tb_batch_ref(node_code, pred_rows, pred_cnt, is_end, n_nodes,

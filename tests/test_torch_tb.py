@@ -1,17 +1,29 @@
-"""Exact mode's device call: the port's DP + traceback
+"""Kernel 3, the backpointer traceback, and its two emitters.
+
+Exact mode's device call: the port's DP + traceback
 (hypo_tpu_torch.poa.dp.poa_dp_tb_batch_ref, and poa.cuda_tb, whose
 wrappers take the plain versions for CPU tensors) against
 hypo_tpu.poa.jax_poa.poa_dp_tb_batch, on graphs that hypo_tpu.poa.Graph
-builds from mutated random sequences.  Inputs come from numpy seeds;
-every compared value is an integer, so the tolerance is 0, over all
-S = N + L + 1 traceback entries."""
+builds from mutated random sequences, over all S = N + L + 1 traceback
+entries.  The tile program's walk: the port's plain version
+(poa.dp.poa_tb_matched_ref, behind poa.cuda_tb.poa_tb_matched) against
+hypo_tpu.poa.device_full._traceback_matched_batch on the bp of the JAX
+tile program's DP, and against matched rebuilt from exact mode's walk.
+Inputs come from numpy seeds; every compared value is an integer, so the
+tolerance is 0."""
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
 
 from hypo_tpu.poa import LOV, NW, ROV, Graph, PoaAligner, jax_poa
-from hypo_tpu_torch.poa import cuda_tb
+from hypo_tpu.poa import device_full as DF
+from hypo_tpu_torch.poa import cuda_poa, cuda_tb
 from hypo_tpu_torch.poa import dp as tdp
+from test_torch_device_full import SC, jax_arm_steps, tile_inputs
+from test_torch_dp import multi_bucket
 
 SHORT = (5, -4, -8)
 LONG = (3, -5, -4)
@@ -207,3 +219,213 @@ def test_dp_tb_kernels_match_plain_on_card(cuda_device):
         want = tdp.poa_dp_tb_batch_ref(*targs, **kw)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b.cpu()), case
+
+
+# -- the tile program's walk (poa_tb_matched) --------------------------------
+
+# the tile of the walk cases: (N, L, K, P, B, truth length, error rate);
+# the inputs are those of its fourth arm step
+WALK_TILE = (96, 48, 8, 4, 14, 30, 0.15)
+WALK_CASES = ("NW", "LOV", "ROV", "inactive", "empty_graph", "row0_run")
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_step():
+    """The JAX tile program's state before its fourth arm step, and that
+    step's (arm, arm_len, mode, active), as numpy arrays."""
+    N, L, K, P, B, tlen, err = WALK_TILE
+    tile, _specs = tile_inputs(7, B, K, L, tlen, err)
+    for k, (st, inp) in enumerate(jax_arm_steps(tile, N, L, P)):
+        if k == 3:
+            return st, tuple(np.array(x) for x in inp[:4])
+    raise AssertionError("the tile has fewer than four arm steps")
+
+
+def walk_inputs(case):
+    """(bp, pred_rows, arm_len, mode, max_row, active) of one arm step
+    for the walk, from the JAX DP (device_full._dp, as the JAX tile
+    program runs it) as _arm_step_batch feeds it.  Rows of bp above a
+    window's effective n_nodes hold random bytes: the DP writes none of
+    them (every row of a window not active), so no walk may read them.
+
+    NW / LOV / ROV: every window in that mode.  inactive: 40% of the
+    windows with a graph have no arm this round.  empty_graph: a third
+    of the windows have n_nodes == 0.  row0_run: NW with four random
+    bases before each arm, so walks end with a horizontal run on row
+    0."""
+    N, L, _K, P, B, _tlen, _err = WALK_TILE
+    st, (arm, arm_len, mode, active) = _walk_step()
+    rng = np.random.default_rng(WALK_CASES.index(case))
+    n_nodes = np.array(st.n_nodes)
+    if case in ("NW", "LOV", "ROV", "row0_run"):
+        mode[:] = {"NW": NW, "LOV": LOV, "ROV": ROV, "row0_run": NW}[case]
+    if case == "inactive":
+        active &= ~(rng.random(B) < 0.4)
+    if case == "empty_graph":
+        n_nodes[::3] = 0
+        st = st._replace(n_nodes=jax.numpy.asarray(n_nodes))
+    if case == "row0_run":
+        arm = np.concatenate([rng.integers(0, 4, (B, 4)), arm],
+                             axis=1)[:, :L].astype(np.int32)
+        arm_len = np.where(arm_len > 0, np.minimum(arm_len + 4, L),
+                           0).astype(np.int32)
+    act = active & (arm_len > 0) & (n_nodes > 0)
+    nn_eff = np.where(act, n_nodes, 0).astype(np.int32)
+    ra = DF._rank_arrays_batch(st, N)
+    bp, max_row = jax.vmap(functools.partial(DF._dp, N=N, L=L, P=P, **SC))(
+        ra.node_code_r, ra.pred_rows, ra.pred_cnt_r, ra.is_end_r, nn_eff,
+        arm, arm_len, mode)
+    bp = np.array(bp)
+    for b in range(B):
+        bp[b, nn_eff[b] + 1:] = rng.integers(-128, 128,
+                                             bp[b, nn_eff[b] + 1:].shape)
+    return (bp, np.asarray(ra.pred_rows), arm_len, mode,
+            np.asarray(max_row), act)
+
+
+def _torch(args):
+    return [torch.from_numpy(np.array(a)) for a in args]
+
+
+def matched_from_exact(ti, tj, steps, active, L):
+    """matched rebuilt from exact mode's emitter: each step that consumed
+    query base j records its rank (or -1) at j; rows of windows not
+    active are -1."""
+    out = np.full((ti.shape[0], L), -1, np.int32)
+    for b in np.nonzero(active)[0]:
+        for t in range(int(steps[b])):
+            if tj[b, t] >= 0:
+                out[b, tj[b, t]] = ti[b, t]
+    return out
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_tile_walk_matches_jax(case):
+    N, L, _K, P, B = WALK_TILE[:5]
+    args = walk_inputs(case)
+    bp, pr, al, md, mr, act = args
+    want = np.asarray(DF._traceback_matched_batch(
+        bp, pr, al, md, mr, active=act, N=N, L=L, P=P))
+    got = tdp.poa_tb_matched_ref(*_torch(args), N=N, L=L, P=P)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, L)
+    assert np.array_equal(got.numpy(), want)
+    assert (want[~act] == -1).all()
+    assert 0 < act.sum() < B or case in ("NW", "LOV", "ROV", "row0_run")
+    assert (want >= 0).any()
+    if case == "row0_run":
+        # some walk's last step is horizontal into (0, 0): row 0 reached
+        # with bases left
+        ti, tj, steps = (x.numpy() for x in tdp.poa_tb_batch_ref(
+            *_torch((bp, pr, mr, al, md)), N=N, L=L, P=P))
+        last = np.maximum(steps - 1, 0)
+        tail = ((ti[np.arange(B), last] == -1)
+                & (tj[np.arange(B), last] == 0) & act & (steps > 0))
+        assert tail.any()
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_tile_walk_is_exact_walk_rebuilt(case):
+    """One walk serves both emitters: matched equals what exact mode's
+    (ti, tj) on the same inputs record per query base."""
+    N, L, _K, P, _B = WALK_TILE[:5]
+    bp, pr, al, md, mr, act = walk_inputs(case)
+    ti, tj, steps = (x.numpy() for x in tdp.poa_tb_batch_ref(
+        *_torch((bp, pr, mr, al, md)), N=N, L=L, P=P))
+    want = tdp.poa_tb_matched_ref(*_torch((bp, pr, al, md, mr, act)), N=N,
+                                  L=L, P=P).numpy()
+    assert np.array_equal(matched_from_exact(ti, tj, steps, act, L), want)
+
+
+def test_tb_matched_wrapper_takes_plain_version_for_cpu_tensors():
+    N, L, _K, P, _B = WALK_TILE[:5]
+    targs = _torch(walk_inputs("inactive"))
+    before = cuda_tb.poa_tb_matched.launches
+    got = cuda_tb.poa_tb_matched(*targs, N=N, L=L, P=P)
+    assert torch.equal(got, tdp.poa_tb_matched_ref(*targs, N=N, L=L, P=P))
+    assert cuda_tb.poa_tb_matched.launches == before
+
+
+def _matched_args(device, B=3, N=16, L=10, P=4):
+    i = lambda *s: torch.zeros(s, dtype=torch.int32,  # noqa: E731
+                               device=device)
+    bp = torch.zeros((B, N + 1, L + 1), dtype=torch.int8, device=device)
+    return ((bp, i(B, N, P), i(B), i(B), i(B),
+             torch.ones(B, dtype=torch.bool, device=device)),
+            dict(N=N, L=L, P=P))
+
+
+def test_tb_matched_wrapper_raises_for_a_device_without_kernel():
+    args, kw = _matched_args(torch.device("meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        cuda_tb.poa_tb_matched(*args, **kw)
+
+
+def test_tb_matched_wrapper_rejects_bad_arguments():
+    args, kw = _matched_args(torch.device("cpu"))
+    for k, bad_arg, msg in (
+            (0, args[0].to(torch.int16), "bp has dtype"),
+            (1, args[1][:, :, :2], "pred_rows has shape"),
+            (5, args[5].to(torch.int32), "active has dtype"),
+            (4, args[4][:2], "max_row has shape")):
+        bad = list(args)
+        bad[k] = bad_arg
+        with pytest.raises(ValueError, match=msg):
+            cuda_tb.poa_tb_matched(*bad, **kw)
+
+
+def card_walk_inputs(B, N, L, P, dev):
+    """Tile-walk inputs at a tile class's shape on the card:
+    test_torch_dp's multi-predecessor graphs (mixed modes, ragged
+    n_nodes and arms) with a fifth of the windows not active (n_nodes 0,
+    as the tile program gives them); kernel 1's bp and max_row, with bp
+    rows above each window's n_nodes overwritten with random bytes."""
+    rng = np.random.default_rng(N)
+    nc, pr, pc, ie, nn, arm, al, md = multi_bucket(B, N, L, P, seed=N)
+    nn[rng.random(B) < 0.2] = 0
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    bp, max_row = cuda_poa.poa_dp_batch(
+        *(t(x) for x in (nc, pr, pc, ie, nn, arm, al, md)), N=N, L=L, P=P,
+        **SC)
+    junk = t(rng.integers(-128, 128, bp.shape, dtype=np.int8))
+    rows = torch.arange(N + 1, device=dev)[None, :, None]
+    bp = torch.where(rows > t(nn)[:, None, None], junk, bp)
+    return bp, t(pr), t(al), t(md), max_row, t(nn > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 256, 126, 8), (256, 1024, 510, 8)],
+                         ids=["class0", "class1"])
+def test_tile_walk_kernel_matches_plain_on_card(cuda_device, shape):
+    B, N, L, P = shape
+    args = card_walk_inputs(B, N, L, P, cuda_device)
+    before = cuda_tb.poa_tb_matched.launches
+    got = cuda_tb.poa_tb_matched(*args, N=N, L=L, P=P)
+    assert cuda_tb.poa_tb_matched.launches == before + 1
+    want = tdp.poa_tb_matched_ref(*args, N=N, L=L, P=P)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert (got[~args[5]] == -1).all() and (got >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_exact_emitter_matches_plain_on_card(cuda_device, case):
+    seed, B, N, L, P, (m, n, g), nseq, blen, rate = CASES[case]
+    args, _rid = graph_bucket(seed, B, N, L, P, (m, n, g), nseq, blen, rate)
+    targs = [torch.from_numpy(a).to(cuda_device) for a in args]
+    bp, max_row = tdp.poa_dp_batch_ref(*targs, N=N, L=L, P=P, m=m, n=n,
+                                       g=g)
+    tb_args = (bp, targs[1], max_row, targs[6], targs[7])
+    got = cuda_tb.poa_tb_batch(*tb_args, N=N, L=L, P=P)
+    want = tdp.poa_tb_batch_ref(*tb_args, N=N, L=L, P=P)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu()), case
+
+
+@pytest.mark.cuda
+def test_tb_matched_wrapper_raises_on_cuda_tensors_it_cannot_take(
+        cuda_device):
+    args, kw = _matched_args(cuda_device)
+    bad = list(args)
+    bad[5] = bad[5].cpu()
+    with pytest.raises(ValueError, match="is on cpu"):
+        cuda_tb.poa_tb_matched(*bad, **kw)
