@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (hypo_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--baseline OLD_poa_dp.cu OLD_poa_tb.cu]
+    python3 chip_smoke.py [--baseline OLD_poa_dp.cu OLD_poa_tb.cu
+                           OLD_consensus.cu]
 
 Phases, each raising on failure (so the script exits non-zero and never
 prints its last line):
@@ -22,14 +23,17 @@ prints its last line):
      Each kernel's bound at each shape, from this run's inputs: the
      larger of the bytes it must move over 3.35 TB/s and its int32
      operations over 132 SMs x 64 lanes x the card's clocks.max.sm.
-     ``--baseline`` takes earlier sources of kernel 1 (csrc/poa_dp.cu)
-     and kernel 3 (csrc/poa_tb.cu), told apart by the entry they
-     export, and times each at its shapes in turns with this one
-     (baseline, this, this, baseline);
+     ``--baseline`` takes earlier sources of kernel 1 (csrc/poa_dp.cu),
+     kernel 3 (csrc/poa_tb.cu) and kernel 2 (csrc/consensus.cu), told
+     apart by the entry they export, and times each at its shapes in
+     turns with this one (baseline, this, this, baseline), after
+     checking it against the plain version;
   4. consensus kernel vs its plain version on the rank arrays of a real
      tile of each shape class (class 0: B=2048, N=256, L=126; class 1:
      B=256, N=1024, L=510; random windows merged by the port's arm
-     steps): exact equality, median times; and the traceback kernel's
+     steps): exact equality, median times, windows resident an SM, and
+     how many windows entered branch completion and the most rounds
+     one ran (from the plain version); and the traceback kernel's
      tile emitter (the tile program's walk) vs its plain version on
      the bp of that tile's arm steps (the first two, the middle one and
      the last; rows above n_nodes hold what kernel 1 left there), with
@@ -93,6 +97,7 @@ import torch
 from hypo_tpu_torch import _build
 from hypo_tpu_torch.poa import NW, LOV, ROV
 from hypo_tpu_torch.poa import device_full as TF
+from hypo_tpu_torch.poa import cuda_consensus
 from hypo_tpu_torch.poa.cuda_consensus import heaviest_bundle
 from hypo_tpu_torch.poa import cuda_poa
 from hypo_tpu_torch.poa.cuda_poa import poa_dp_batch
@@ -109,7 +114,8 @@ COUNTERS = {"poa_dp": (poa_dp_batch,),
             "poa_tb": (poa_tb_batch, poa_tb_matched),
             "consensus": (heaviest_bundle,)}
 # the C entry by which a --baseline source is known as a kernel's
-BASELINE_ENTRY = {"poa_dp": "hypo_poa_dp", "poa_tb": "hypo_poa_tb"}
+BASELINE_ENTRY = {"poa_dp": "hypo_poa_dp", "poa_tb": "hypo_poa_tb",
+                  "consensus": "hypo_heaviest_bundle"}
 REPS = 5
 KERNEL_INNER = 10
 POA_RE = re.compile(r"POA over (\d+) windows\. \[([0-9.]+) sec")
@@ -639,6 +645,47 @@ def cons_bound(cargs, N, P) -> dict:
                  4 * n_preds + 4 * n_rows)
 
 
+def multi_in_edge_share(cargs, N) -> float:
+    """The share of nodes below n_nodes with more than one in-edge."""
+    pred_cnt, nn = cargs[2], cargs[6]
+    rows = torch.arange(N, device=nn.device)[None, :] < nn[:, None]
+    return int((rows & (pred_cnt > 1)).sum()) / max(int(rows.sum()), 1)
+
+
+def baseline_consensus(lib, cargs, N, P):
+    """The first kernel 2 (one thread per window; scores and preds
+    scratch in device memory), through its 13-pointer entry."""
+    B = cargs[0].shape[0]
+    dev = cargs[0].device
+    out = [torch.empty((B, N), dtype=torch.int32, device=dev)
+           for _ in range(4)]
+    cons_len = torch.empty((B,), dtype=torch.int32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.hypo_heaviest_bundle.restype = ci
+    lib.hypo_heaviest_bundle.argtypes = [vp] * 13 + [ci] * 3 + [vp]
+    p = _build.ptr
+    rc = lib.hypo_heaviest_bundle(
+        *(p(x) for x in cargs), p(out[0]), p(out[1]), p(cons_len),
+        p(out[2]), p(out[3]), B, N, P,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, rc, "baseline heaviest_bundle launch")
+    return out[0], out[1], cons_len
+
+
+def cons_versions(name, cargs, N, P, ref, baseline) -> dict:
+    """Kernel 2 against the baseline kernel on the same inputs, in turns,
+    the baseline checked against the plain version's output ``ref``
+    first."""
+    if baseline is None:
+        return {}
+    got = baseline_consensus(baseline, cargs, N, P)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise RuntimeError(f"baseline consensus != plain on {name}")
+    return in_turns(f"consensus {name}",
+                    lambda: baseline_consensus(baseline, cargs, N, P),
+                    lambda: heaviest_bundle(*cargs, N=N, P=P))
+
+
 def matched_from_exact(ti, tj, steps, active, L):
     """matched [B, L] rebuilt from exact mode's emitter: each step that
     consumed a query base j records its rank (or -1) at j."""
@@ -696,7 +743,8 @@ def phase_tile_walk(name, calls, N, L, P) -> dict:
                 bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
 
 
-def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
+def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
+               baseline=None) -> dict:
     K, P = 16, 8
     t0 = time.time()
     pool, plen, idx, amode, aw, narms, specs = random_tile(
@@ -731,7 +779,8 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
              ra.node_code_r, ra.node_sup_r, st.n_nodes,
              ra.rank_of[:, 0].contiguous())
     out_k = heaviest_bundle(*cargs, N=N, P=P)
-    out_p = TF._consensus_wavefront(*cargs, N=N, P=P)
+    *out_p, rounds = TF._consensus_wavefront(*cargs, N=N, P=P,
+                                             with_rounds=True)
     torch.cuda.synchronize()
     err = max((a - b).abs().amax().item() for a, b in zip(out_k, out_p))
     if err:
@@ -744,7 +793,19 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
         f"lengths); kernel {ms:.4f} ms ({call_ms:.4f} ms a call), plain "
         f"{plain_ms:.3f} ms; bound "
         f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bytes'] / 1e6:.1f}"
-        f" MB): {bd['bound_ms'] / ms:.3f} of it")
+        f" MB): {bd['bound_ms'] / ms:.3f} of it; "
+        f"{cuda_consensus.smem_bytes(N, P)} B shared memory a window, "
+        f"{cuda_consensus.occupancy(N, P)} windows resident an SM; "
+        f"branch completion in {int((rounds > 0).sum())} of {B} windows, "
+        f"at most {int(rounds.max())} rounds in one; nodes mean "
+        f"{st.n_nodes.float().mean().item():.1f}, "
+        f"{multi_in_edge_share(cargs, N):.3f} of them with more than one "
+        f"in-edge")
+    versions = cons_versions(name, cargs, N, P, out_p, baseline)
+    if versions:
+        log(f"consensus {name} share of the bound: baseline "
+            f"{bd['bound_ms'] / versions['baseline_ms']:.4f}, this kernel "
+            f"{bd['bound_ms'] / versions['new_ms']:.4f}")
 
     # 5. the tile program vs the NumPy spec
     tile = TF.build_tile_program(N=N, L=L, K=K, P=P, B=B, A=len(pool),
@@ -787,7 +848,7 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec) -> dict:
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
                 tile=tile,
                 targs=targs, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
-                tb=tb)
+                tb=tb, **versions)
 
 
 def phase_profile(tile, targs) -> None:
@@ -1100,10 +1161,11 @@ def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="CU", nargs="+", default=[],
-                    help="earlier sources of csrc/poa_dp.cu and/or "
-                         "csrc/poa_tb.cu, each timed in turns with the "
-                         "kernel it exports the entry of, in the same "
-                         "run, at that kernel's shapes")
+                    help="earlier sources of csrc/poa_dp.cu, "
+                         "csrc/poa_tb.cu and/or csrc/consensus.cu, each "
+                         "timed in turns with the kernel it exports the "
+                         "entry of, in the same run, at that kernel's "
+                         "shapes")
     return ap.parse_args(argv)
 
 
@@ -1115,7 +1177,8 @@ def main() -> None:
     baselines = phase_build(opts.baseline)
     dp = phase_dp(rng, dev, baselines.get("poa_dp"))
     exact_dp, exact_tb = phase_exact_dp(rng, dev, baselines)
-    cons = {t[0]: phase_tile(rng, dev, *t) for t in TILES}
+    cons = {t[0]: phase_tile(rng, dev, *t, baseline=baselines.get("consensus"))
+            for t in TILES}
     tile_tb = {k: v.pop("tb") for k, v in cons.items()}
     phase_profile(cons["class0"]["tile"], cons["class0"]["targs"])
     with tempfile.TemporaryDirectory(prefix="hypo_chip_smoke_") as tmp:
@@ -1125,8 +1188,7 @@ def main() -> None:
         paths["no_native_200kbp_hybrid"] = phase_no_native(tmp)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
-    cons = {k: {f: v[f] for f in ("ms", "call_ms", "plain_ms", "max_abs_err",
-                                   "bound_ms", "bound_by")}
+    cons = {k: {f: x for f, x in v.items() if f not in ("tile", "targs")}
             for k, v in cons.items()}
 
     def entry(name, key, replaces, path, shape, by_shape):

@@ -6,9 +6,11 @@ A tile of B windows carries one fixed-shape graph state per window
 (``PoaState``, leading batch dimension B).  Each arm step ranks every
 graph, runs the graph-vs-arm DP (kernel 1, poa.cuda_poa), walks the
 backpointers (kernel 3, poa.cuda_tb) and merges the arm; after the last
-step the heaviest-bundle consensus (kernel 2, poa.cuda_consensus) is
-curated and packed into nibbles.  Windows that overflow a cap get a
-sticky ``ovf`` flag and are re-run on the host engine by the runner.
+step the heaviest-bundle consensus (kernel 2, poa.cuda_consensus: one
+warp per window, the window's tables in shared memory; its plain
+version is ``_consensus_wavefront`` below) is curated and packed into
+nibbles.  Windows that overflow a cap get a sticky ``ovf`` flag and are
+re-run on the host engine by the runner.
 
 Where the JAX package expressed irregular indexing as one-hot compares
 and f32 matmuls (a TPU workaround, device_full.py:24-28, 105-142), this
@@ -277,14 +279,16 @@ def _arm_step_batch(st: PoaState, arm, arm_len, mode, active, w=None, *,
 
 
 def _consensus_wavefront(pred_ranks, pred_w_r, pred_cnt_r, is_end_r,
-                         node_code_r, node_sup_r, n_nodes, rank0, *, N, P):
+                         node_code_r, node_sup_r, n_nodes, rank0, *, N, P,
+                         with_rounds=False):
     """Plain heaviest-bundle consensus (the reference version of kernel 2;
     hypo_tpu device_full._consensus_wavefront): every node relaxes from
     its predecessors' current scores at once, iterated to the fixpoint,
     which on a DAG equals the sequential result.  Branch completion runs
     at most N rounds, as the kernel does.  Same arguments and results as
     cuda_consensus.heaviest_bundle; codes and supports past cons_len are
-    0."""
+    0.  ``with_rounds`` appends each window's number of branch-completion
+    rounds (int32 [B])."""
     B = pred_ranks.shape[0]
     dev = pred_ranks.device
     parange = torch.arange(P, dtype=_I32, device=dev)
@@ -327,11 +331,13 @@ def _consensus_wavefront(pred_ranks, pred_w_r, pred_cnt_r, is_end_r,
     scores, preds = wavefront(scores, preds, False, valid_r)
     max_r = torch.where(valid_r, scores, NEG).argmax(dim=1).to(_I32)
 
+    rounds = torch.zeros_like(nn)
     for _ in range(N):
         ie = _take(is_end_r, max_r.clamp(0, N - 1)[:, None])[:, 0]
         act = (nn > 0) & ~ie
         if not bool(act.any()):
             break
+        rounds += act.to(_I32)
         mr = max_r[:, None, None]
         succ = ((pred_ranks == mr) & slot_base).any(dim=2)       # [B, N]
         ban = succ[:, :, None] & slot_base & (pred_ranks != mr)
@@ -362,6 +368,8 @@ def _consensus_wavefront(pred_ranks, pred_w_r, pred_cnt_r, is_end_r,
         sups[:, t] = torch.where(alive, _take(node_sup_r, rr)[:, 0], 0)
         cons_len += alive.to(_I32)
         r = torch.where(alive, _take(preds, rr)[:, 0], r)
+    if with_rounds:
+        return codes, sups, cons_len, rounds
     return codes, sups, cons_len
 
 
