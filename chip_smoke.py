@@ -62,8 +62,21 @@ prints its last line):
      mode full; md5s as in 6;
   8. full mode without the native host library (``HYPO_TPU_NO_NATIVE=1``:
      pure-Python host stages and the runner's run_windows path) on a
-     200 kbp hybrid simulation; md5s as in 6.
-Phases 6-8 run the port in this process, every launch counter set to 0
+     200 kbp hybrid simulation; md5s as in 6;
+  9. sharded polish: a 4 Mbp / 30x simulation in 4 contigs of 1 Mbp
+     (phase 6's configuration, nothing cut), polished (a) by the port's
+     host engine; (b) by two ranks (``--nproc 2``, a fresh aux directory
+     and output path, ``HYPO_POA_NDEV=1`` each): rank 1 a
+     ``hypo_tpu_torch.cli`` subprocess started first, rank 0 in this
+     process; rank 1 on the second card when there are two
+     (``CUDA_VISIBLE_DEVICES=1``), else both on cuda:0; (c) by one
+     process whose tiles split into two device blocks (the first two
+     cards, or cuda:0 twice on one card): every md5 equals the pin,
+     rows per device balanced within 1.5; then ``entry.entry()``'s DP
+     call against its plain version, ``entry.dryrun_multichip(2)`` over
+     the same two devices, and two processes started together that
+     build one kernel under a fresh name (the build's race).
+Phases 6-9 run the port in this process, every launch counter set to 0
 just before each run and read just after.  Nothing of hypo_tpu or jax
 is imported or run.  Tolerance everywhere: 0 (every compared value is
 an integer).  A kernel's time is its device time per call under
@@ -809,7 +822,7 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
 
     # 5. the tile program vs the NumPy spec
     tile = TF.build_tile_program(N=N, L=L, K=K, P=P, B=B, A=len(pool),
-                                 device=dev, **SCORES)
+                                 devices=dev, **SCORES)
     targs = (pool, plen, idx, amode, aw, narms, np.zeros(B, np.int32))
     far = TF.poa_dp_batch = FarRows(poa_dp_batch)
     try:
@@ -936,21 +949,25 @@ def _md5(path: str) -> str:
         return hashlib.md5(fh.read()).hexdigest()
 
 
-def simulate(tmp: str, name: str, genome_size: int, hybrid: bool):
-    """A hypo_tpu_torch.sim dataset (seed 1, 30x short reads; hybrid: 25x long
-    reads and short-read dropout over [0.30, 0.33) of the genome, the
-    hybrid recipe of SCALE.md) and the polishing arguments that read it
-    (``-B lr.bam`` when hybrid)."""
+def simulate(tmp: str, name: str, genome_size: int, hybrid: bool,
+             contigs: int = 1):
+    """A hypo_tpu_torch.sim dataset (seed 1, 30x short reads, in
+    ``contigs`` contigs; hybrid: 25x long reads and short-read dropout
+    over [0.30, 0.33) of the genome, the hybrid recipe of SCALE.md) and
+    the polishing arguments that read it (``-B lr.bam`` when hybrid)."""
     sim = os.path.join(tmp, name)
     extra = ["--long-cov", "25", "--dropout", "0.30,0.33"] if hybrid else []
+    if contigs > 1:
+        extra += ["--num-contigs", str(contigs)]
     t0 = time.time()
     subprocess.run([sys.executable, "-m", "hypo_tpu_torch.sim", "--out", sim,
                     "--genome-size", str(genome_size), "--short-cov", "30",
                     *extra, "--seed", "1"], cwd=HERE,
                    env=dict(os.environ, PYTHONPATH=HERE), check=True,
                    capture_output=True)
-    log(f"sim {name}: {genome_size / 1e6:g} Mbp, 30x short"
-        f"{', 25x long' if hybrid else ''}: {time.time() - t0:.1f} s")
+    log(f"sim {name}: {genome_size / 1e6:g} Mbp in {contigs} contig(s), "
+        f"30x short{', 25x long' if hybrid else ''}: "
+        f"{time.time() - t0:.1f} s")
     common = ["-r", f"{sim}/reads.fq.gz", "-d", f"{sim}/draft.fa",
               "-b", f"{sim}/sr.bam", "-c", "30", "-s", str(genome_size),
               "-t", str(os.cpu_count() or 1)]
@@ -965,12 +982,16 @@ def stage_times(text: str):
     return int(mp.group(1)), float(mp.group(2)), float(mt.group(1))
 
 
-def run_port(argv, no_native: bool = False):
+def run_port(argv, no_native: bool = False, device=None, ndev=None):
     """``hypo_tpu_torch.cli`` in this process, every kernel launch counter
     set to 0 just before and read just after; ``no_native`` sets
-    HYPO_TPU_NO_NATIVE=1 for the run.  Returns (stats, launches,
-    (windows, POA seconds, total seconds), wall seconds)."""
+    HYPO_TPU_NO_NATIVE=1 for the run, ``ndev`` HYPO_POA_NDEV; a
+    ``device`` (or list of devices) polishes through
+    ``pipeline.polish.polish(flags, device)`` instead of cli.run.
+    Returns (stats, launches, (windows, POA seconds, total seconds),
+    wall seconds)."""
     from hypo_tpu_torch import cli
+    from hypo_tpu_torch.pipeline.polish import polish
     for wrappers in COUNTERS.values():
         for w in wrappers:
             w.launches = 0
@@ -979,13 +1000,22 @@ def run_port(argv, no_native: bool = False):
     sys.stderr = _Tee(old, buf)
     if no_native:
         os.environ["HYPO_TPU_NO_NATIVE"] = "1"
+    if ndev is not None:
+        os.environ["HYPO_POA_NDEV"] = str(ndev)
     t0 = time.time()
     try:
-        polisher = cli.run(argv)
+        if device is None:
+            polisher = cli.run(argv)
+        else:
+            polisher = polish(
+                cli.flags_from_args(cli.build_parser().parse_args(argv)),
+                device)
         torch.cuda.synchronize()
     finally:
         sys.stderr = old
         os.environ.pop("HYPO_TPU_NO_NATIVE", None)
+        if ndev is not None:
+            os.environ.pop("HYPO_POA_NDEV", None)
     wall = time.time() - t0
     launches = launch_counts()
     return (polisher.device_runner.stats, launches,
@@ -1044,6 +1074,7 @@ def log_tiles(what: str, stats: dict) -> None:
 # ... --no-device-poa``) writes from each simulation of this script: the
 # tie between the port and the JAX package on the card
 PINNED_MD5 = {"sim_4m": "db85bbe32c2b4637f6e6a5e933e5c498",
+              "sim_4m_4c": "0ee822b6c4de06d42b6826c98721247c",
               "sim_hybrid": "2989f8d282e631eb5c6307e062eef83d",
               "sim_no_native": "11375dabd37edd4de899aeba20f8d588"}
 
@@ -1157,6 +1188,144 @@ def phase_no_native(tmp: str, genome_size: int = 200_000) -> dict:
     return launches
 
 
+# -- 9. sharded polish --------------------------------------------------------
+
+def two_ranks(tmp: str, sim: str, common, md5_host: str) -> dict:
+    """(b): rank 1 a command-line subprocess started first, rank 0 in
+    this process; each rank drives one card (HYPO_POA_NDEV=1)."""
+    from hypo_tpu_torch.io.fasta import read_fastx
+    from hypo_tpu_torch.parallel.distributed import shard_contigs_contiguous
+    two = torch.cuda.device_count() >= 2
+    log("two ranks: " + ("rank 0 on cuda:0, rank 1 on the second card "
+                         "(CUDA_VISIBLE_DEVICES=1)" if two else
+                         "one card, both ranks on cuda:0"))
+    ranges = shard_contigs_contiguous(
+        [len(s) for _n, s in read_fastx(f"{sim}/draft.fa")], 2)
+    out = os.path.join(tmp, "sharded_2rank.fa")
+    argv = common + ["-o", out, "--aux-dir", os.path.join(tmp, "aux_2rank"),
+                     "--nproc", "2", "--device-poa"]
+    env = dict(os.environ, PYTHONPATH=HERE, HYPO_POA_NDEV="1")
+    if two:
+        env["CUDA_VISIBLE_DEVICES"] = "1"
+    rank1_log = os.path.join(tmp, "rank1.log")
+    t0 = time.time()
+    with open(rank1_log, "w") as fh:
+        rank1 = subprocess.Popen(
+            [sys.executable, "-m", "hypo_tpu_torch.cli", *argv,
+             "--procid", "1"], cwd=HERE, env=env, stdout=fh,
+            stderr=subprocess.STDOUT)
+    try:
+        stats, launches, times, wall = run_port(argv + ["--procid", "0"],
+                                                ndev=1)
+        rc = rank1.wait(timeout=600)
+    finally:
+        if rank1.poll() is None:
+            rank1.kill()
+            rank1.wait()
+    wall_both = time.time() - t0
+    with open(rank1_log) as fh:
+        text1 = fh.read()
+    if rc != 0:
+        raise RuntimeError(f"rank 1 exited with {rc}:\n{text1[-3000:]}")
+    stats1 = json.loads(re.search(r"device POA stats \(full\): (\{.*\})",
+                                  text1).group(1))
+    for pid, st, tm, w in ((0, stats, times, wall),
+                           (1, stats1, stage_times(text1), None)):
+        log_times(f"two ranks: rank {pid}, contigs [{ranges[pid][0]}, "
+                  f"{ranges[pid][1]})", tm, w)
+        log(f"two ranks: rank {pid} device POA stats {json.dumps(st)}")
+        if st["full_windows"] <= 0:
+            raise RuntimeError(f"rank {pid}: no window on the device")
+    log(f"two ranks: wall {wall_both:.2f} s from rank 1's start to both "
+        f"ranks' end (rank 1 a new process: its CUDA context and kernel "
+        f"loads included)")
+    same_md5("two ranks (gathered by rank 0)", sim, _md5(out), md5_host)
+    check_launches("two ranks (rank 0, 4 Mbp in 4 contigs)", launches,
+                   KERNELS)
+    return launches
+
+
+def build_race(tmp: str) -> None:
+    """Two processes started together build csrc/poa_dp.cu under one
+    fresh name into _build/ and load it: each compiles to its own
+    temporary file and renames it into place."""
+    name = f"race_{os.getpid()}"
+    code = ("import sys; from hypo_tpu_torch import _build; "
+            f"lib = _build.load({name!r}, 'hypo_tpu_torch/csrc/poa_dp.cu'); "
+            "assert hasattr(lib, 'hypo_poa_dp')")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=HERE,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for _ in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        so = os.path.join(_build.BUILD_DIR, f"lib{name}.so")
+        if os.path.exists(so):
+            os.remove(so)
+    for p, text in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"concurrent build failed:\n{text[-2000:]}")
+    log(f"build race: two processes built and loaded one kernel under one "
+        f"name together in {time.time() - t0:.1f} s")
+
+
+def phase_sharded(tmp: str, genome_size: int = 4_000_000) -> tuple:
+    t_phase = time.time()
+    from hypo_tpu_torch import entry
+    sim, common = simulate(tmp, "sim_4m_4c", genome_size, hybrid=False,
+                           contigs=4)
+    # (a) the host engine
+    md5_host, host_times = run_host(common,
+                                    os.path.join(tmp, "host_4m_4c.fa"))
+    log_times("sharded: host engine (--no-device-poa)", host_times)
+    # (b) two ranks
+    ranks = two_ranks(tmp, sim, common, md5_host)
+    # (c) one process, tiles split into two device blocks
+    n = torch.cuda.device_count()
+    devs = ([torch.device("cuda", 0), torch.device("cuda", 1)] if n >= 2
+            else [torch.device("cuda", 0)] * 2)
+    log("split: " + ("tiles over the first two cards" if n >= 2 else
+                     "one card: both blocks on cuda:0 (this checks the "
+                     "split, not two cards)"))
+    out = os.path.join(tmp, "split_2dev.fa")
+    stats, split, times, wall = run_port(
+        common + ["-o", out, "--aux-dir", os.path.join(tmp, "aux_split"),
+                  "--device-poa"], device=devs, ndev=2)
+    log_times(f"split over {[str(d) for d in devs]}", times, wall)
+    log_tiles("split", stats)
+    rows = stats["rows_per_device"]
+    balance = max(rows) / max(min(rows), 1)
+    log(f"split: rows per device {rows} (max/min {balance:.3f})")
+    if len(rows) != 2 or sum(rows) != stats["full_windows"] or balance > 1.5:
+        raise RuntimeError(f"split: rows per device {rows} unbalanced or "
+                           f"not summing to {stats['full_windows']}")
+    same_md5("split over two device blocks", sim, _md5(out), md5_host)
+    check_launches("split (4 Mbp in 4 contigs, two device blocks)", split,
+                   KERNELS)
+    # the entry points
+    fn, args = entry.entry()
+    got = fn(*args)
+    ref = poa_dp_batch_ref(*(a.cpu() for a in args), N=128, L=128, P=8,
+                           **SCORES)
+    err = dp_diff([x.cpu() for x in got], ref, args[4].cpu(), 128)
+    log(f"entry(): DP kernel on {args[0].device} vs plain, bp on rows <= "
+        f"n_nodes and max_row: max diff {err}")
+    if err:
+        raise RuntimeError("entry(): DP kernel differs from its plain "
+                           "version")
+    entry.dryrun_multichip(2, devices=devs)
+    build_race(tmp)
+    log(f"sharded phase: {time.time() - t_phase:.1f} s "
+        f"(card: {smi_line()})")
+    return ranks, split
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1186,6 +1355,8 @@ def main() -> None:
         paths["exact_1mbp_hybrid"], paths["full_1mbp_hybrid"] = \
             phase_exact_e2e(tmp)
         paths["no_native_200kbp_hybrid"] = phase_no_native(tmp)
+        paths["sharded_2rank_4mbp"], paths["split_2dev_4mbp"] = \
+            phase_sharded(tmp)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
     cons = {k: {f: x for f, x in v.items() if f not in ("tile", "targs")}

@@ -16,9 +16,17 @@ stderr as one JSON object: device_rounds, device_aligns, long_aligns
 and host_fallbacks for both modes, plus the tile counts of mode
 ``full``.
 
+Several processes polish one draft together with ``--nproc N --procid
+i`` (one contiguous range of contigs each, the k-mer counts merged and
+the FASTA gathered by rank 0 through the shared filesystem; give every
+run a fresh ``--aux-dir`` and output path); ``--coordinator host:port``
+also joins them in a torch.distributed (gloo) process group.  Mode
+``full`` splits each tile over every visible CUDA device, or the first
+``HYPO_POA_NDEV`` of them (``CUDA_VISIBLE_DEVICES`` chooses which are
+visible).
+
 ``build_parser`` and ``flags_from_args`` are copied from hypo_tpu/cli.py
-(only the help texts name the CUDA device).  Not ported: multi-process
-runs (``--nproc`` > 1, ``--coordinator``), which exit with an error.
+(only the help texts name the CUDA device and torch.distributed).
 """
 from __future__ import annotations
 
@@ -74,13 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "merges")
     ap.add_argument("--aux-dir", default="aux")
     ap.add_argument("--nproc", type=int, default=1,
-                    help="number of polishing processes (not ported: "
-                         "only 1)")
+                    help="number of polishing processes (contigs shard "
+                         "across them; shared filesystem)")
     ap.add_argument("--procid", type=int, default=0,
                     help="this process's rank in [0, nproc)")
     ap.add_argument("--coordinator", default="",
-                    help="multi-process coordinator address (not "
-                         "ported)")
+                    help="torch.distributed coordinator address "
+                         "(host:port, served by rank 0); optional")
     ap.add_argument("--inspect", action="store_true",
                     help="write aux/regions.bed and aux/inspect.txt "
                          "(reference generate_inspect_file artifacts)")
@@ -153,9 +161,6 @@ def run(argv: Optional[List[str]] = None) -> Polisher:
     """Parse ``argv``, polish, print the device path's stats to stderr;
     returns the Polisher."""
     flags = flags_from_args(build_parser().parse_args(argv))
-    if flags.num_processes > 1 or flags.coordinator:
-        raise SystemExit("hypo_tpu_torch: multi-process polishing "
-                         "(--nproc > 1, --coordinator) is not ported")
     print(f"[hypo_tpu_torch] k={flags.k} output={flags.output_filename}",
           file=sys.stderr)
     p = polish(flags)

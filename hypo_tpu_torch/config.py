@@ -119,7 +119,7 @@ class InputFlags:
     # BAM slice and writes output.shard{pid}; rank 0 gathers.
     num_processes: int = 1
     process_id: int = 0
-    coordinator: str = ""  # jax.distributed coordinator (pod slices)
+    coordinator: str = ""  # torch.distributed coordinator (host:port)
 
     def __post_init__(self):
         if not self.legacy_dead_set_kind:

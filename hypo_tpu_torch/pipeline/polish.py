@@ -18,12 +18,16 @@ available and ``run_windows`` when it is not; the exact runner always
 takes ``run_windows``.  Asking for the device path without CUDA exits
 with an error: nothing moves to the CPU quietly.
 
+With ``num_processes`` > 1 each process polishes one contiguous range
+of contigs (parallel.distributed): it counts k-mers over its share of
+the reads, merges the counts with every other process through
+``aux_dir``, skips its streams to its first contig, writes its shard of
+the FASTA, and rank 0 gathers the shards in draft order.
+
 Copied from hypo_tpu/pipeline/polish.py with its two device hooks
 replaced (``_resolve_device_poa``: auto keeps the host engine, where
 the JAX package probed for a TPU; ``_make_device_runner``: the port's
-runners on a CUDA device, or on the CPU device a test passes) and
-without its multi-process branches (parallel.distributed, and the
-streams' shard skip), which the port's command line refuses.
+runners on the CUDA devices, or on the CPU device a test passes).
 """
 from __future__ import annotations
 
@@ -66,6 +70,12 @@ class _NativeStream:
         # flat AlignmentViews need the native host stages to consume
         # them; with only the BAM lib present fall back to objects
         self.flat = host_api.available()
+
+    def skip_until(self, final_cid: int) -> None:
+        """Advance the stream past all records of contigs < final_cid
+        (multi-process shard skip).  mapq threshold 256 > uint8 max drops
+        every parsed record."""
+        self.inner.load_until(final_cid, 256, None)
 
     def load_until(self, final_cid: int, min_mapq: int,
                    norm_edit_th=None, contig_lens=None):
@@ -122,6 +132,11 @@ class _BamStream:
                 return
             yield cid, rec
 
+    def skip_until(self, final_cid: int) -> None:
+        """Advance the stream past all records of contigs < final_cid."""
+        for _ in self.records_until(final_cid):
+            pass
+
     def load_until(self, final_cid: int, min_mapq: int,
                    norm_edit_th=None, contig_lens=None):
         """Same contract as _NativeStream.load_until."""
@@ -148,10 +163,22 @@ def cuda_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def cuda_devices() -> List[torch.device]:
+    """Every visible CUDA device (the runner of mode ``full`` keeps the
+    first ``HYPO_POA_NDEV`` of them); exits with an error when there is
+    none."""
+    from ..parallel.mesh import local_devices
+    cuda_device()
+    return local_devices()
+
+
 class Polisher:
-    """``device`` is where the device runner computes: None means the
-    current CUDA device; tests pass torch.device("cpu") to run the
-    kernels' plain versions."""
+    """``device`` is where the device runner computes, a device or a
+    list of devices (the tiles of mode ``full`` split into one block of
+    rows per device): None means every visible CUDA device in mode
+    ``full`` (at most ``HYPO_POA_NDEV``) and the current one in mode
+    ``exact``; tests pass torch.device("cpu") to run the kernels' plain
+    versions."""
 
     def __init__(self, flags: InputFlags, device=None):
         self.flags = flags
@@ -169,8 +196,34 @@ class Polisher:
             sk = SolidKmers.load(skfile)
             self.monitor.stop("[hypo_tpu] Loaded solid kmers. ")
             return sk
-        sk = SolidKmers(f.k).initialise(f.sr_filenames, f.cov)
-        if f.intermed:
+        if f.num_processes > 1:
+            # distributed counting: each rank counts only its shard of
+            # the read files; the per-kmer tables merge globally so the
+            # selection semantics equal the reference's single KMC
+            # database over ALL reads (suk/src/SolidKmers.cpp:104-190)
+            from ..kmers.counting import KmerCounter, count_files
+            from ..parallel.distributed import (merge_kmer_counts_files,
+                                                shard_files)
+            cap = 4 * f.cov + 1
+            if len(f.sr_filenames) >= f.num_processes:
+                mine = shard_files(f.sr_filenames, f.process_id,
+                                   f.num_processes)
+                counter = (count_files(mine, f.k, cap=cap) if mine
+                           else KmerCounter(f.k, cap=cap))
+            else:  # fewer files than ranks: stride over reads instead
+                counter = count_files(f.sr_filenames, f.k, cap=cap,
+                                      stride=f.num_processes,
+                                      offset=f.process_id)
+            codes, counts = counter.items()
+            codes, counts = merge_kmer_counts_files(
+                codes, counts, f.aux_dir, f.process_id, f.num_processes)
+            sk = SolidKmers(f.k).initialise_from_counts(codes, counts,
+                                                        f.cov)
+        else:
+            sk = SolidKmers(f.k).initialise(f.sr_filenames, f.cov)
+        # checkpoints are written by rank 0 only (shared-fs race; every
+        # process computes the identical bitmask deterministically)
+        if f.intermed and f.process_id == 0:
             os.makedirs(f.aux_dir, exist_ok=True)
             sk.store(skfile)
             with open(stagefile, "a") as fh:
@@ -204,18 +257,23 @@ class Polisher:
             raise SystemExit(f"hypo_tpu_torch: --device-poa-mode "
                              f"{f.device_poa_mode} cannot take these scores "
                              f"({e}); polish with --no-device-poa") from None
-        device = self.device if self.device is not None else cuda_device()
         if f.device_poa_mode == "full":
-            runner = FullDeviceRunner(f.score_params, device,
-                                      threads=f.threads)
+            runner = FullDeviceRunner(
+                f.score_params, (self.device if self.device is not None
+                                 else cuda_devices()), threads=f.threads)
         else:
-            runner = DeviceConsensusRunner(f.score_params, device)
+            runner = DeviceConsensusRunner(
+                f.score_params,
+                self.device if self.device is not None else cuda_device())
         runner.warm()
         return runner
 
     def polish(self) -> None:
         f = self.flags
         mon = self.monitor
+        if f.coordinator:
+            from ..parallel import distributed as dist
+            dist.initialize(f.coordinator, f.num_processes, f.process_id)
         self._resolve_device_poa()
         self.device_runner = self._make_device_runner()
         mon.start()
@@ -231,27 +289,53 @@ class Polisher:
         mon.stop("[hypo_tpu] Loaded contigs. ")
 
         n_contigs = len(self.contigs)
+        if f.num_processes > 1:
+            from ..parallel.distributed import shard_contigs_contiguous
+            shard_lo, shard_hi = shard_contigs_contiguous(
+                [c.length for c in self.contigs],
+                f.num_processes)[f.process_id]
+            print(f"[hypo_tpu] shard {f.process_id}/{f.num_processes}: "
+                  f"contigs [{shard_lo}, {shard_hi})")
+        else:
+            shard_lo, shard_hi = 0, n_contigs
+
         mon.start()
-        for ctg in self.contigs:
+        for ctg in self.contigs[shard_lo:shard_hi]:
             ctg.find_solid_pos(sk)
         mon.stop("[hypo_tpu] Found solid positions. ")
 
-        batch = f.processing_batch_size or max(1, n_contigs)
+        batch = f.processing_batch_size or max(1, shard_hi - shard_lo)
         sr_stream = open_stream(f.sr_bam_filename, cname_to_id)
         lr_stream = (None if self.no_long_reads
                      else open_stream(f.lr_bam_filename, cname_to_id))
+        if shard_lo > 0:
+            sr_stream.skip_until(shard_lo)
+            if lr_stream is not None:
+                lr_stream.skip_until(shard_lo)
         engine = ConsensusEngine(f.score_params)
 
-        lo = 0
-        while lo < n_contigs:
-            hi = min(n_contigs, lo + batch)
+        lo = shard_lo
+        while lo < shard_hi:
+            hi = min(shard_hi, lo + batch)
             self._polish_batch(sr_stream, lr_stream, engine, lo, hi)
             lo = hi
 
         mon.start()
-        write_fasta(f.output_filename,
-                    ((c.name, c.polished_seq(self.no_long_reads))
-                     for c in self.contigs))
+        shard = self.contigs[shard_lo:shard_hi]
+        if f.num_processes > 1:
+            from ..parallel.distributed import gather_polished_fasta
+            shard_path = f"{f.output_filename}.shard{f.process_id}"
+            write_fasta(shard_path,
+                        ((c.name, c.polished_seq(self.no_long_reads))
+                         for c in shard))
+            open(shard_path + ".done", "w").close()
+            gather_polished_fasta(f.output_filename, f.num_processes,
+                                  f.process_id,
+                                  [c.name for c in self.contigs])
+        else:
+            write_fasta(f.output_filename,
+                        ((c.name, c.polished_seq(self.no_long_reads))
+                         for c in shard))
         mon.stop("[hypo_tpu] Wrote results. ")
         mon.total("[hypo_tpu] Overall. ")
 

@@ -21,12 +21,15 @@ writes and is dropped.  The rank order is a sort by (column position,
 node id) instead of JAX's counting; the two are equal.
 
 Everything runs on the device of the tensors it is given; the kernel
-wrappers take their plain versions only for CPU tensors.
+wrappers take their plain versions only for CPU tensors.  The tile
+program splits its B windows into one contiguous block of rows per
+device, as the JAX package's shard_map does (device_full.py:733-779).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
+import numpy as np
 import torch
 
 from . import BIG, NCODES, NEG
@@ -406,16 +409,22 @@ def _finish_packed(st: PoaState, th, *, N, P):
 
 
 def run_arm_steps(pool, plen, idx, amode, aw, narms, *, N, L, P, m, n, g,
-                  device) -> PoaState:
+                  device, kmax=None) -> PoaState:
     """Merge every window's arms into a fresh graph state on ``device``.
     pool [A, L] arm codes; plen [A]; idx [B, K] pool row of arm k of
-    window b (-1 none); amode [B, K]; aw [B, K] weights; narms [B]."""
+    window b (-1 none); amode [B, K]; aw [B, K] weights; narms [B].
+    The arm loop runs ``kmax`` steps, by default the largest of narms
+    (read back from the device when narms lies there); a window's result
+    does not depend on it as long as it is at least that window's
+    narms, since a window past its arms is inactive."""
     pool, plen, idx, amode, aw, narms = (
         torch.as_tensor(x, device=device).to(_I32)
         for x in (pool, plen, idx, amode, aw, narms))
     B = idx.shape[0]
     st = init_state(N, P, B, device)
-    for k in range(int(narms.max()) if B else 0):
+    if kmax is None:
+        kmax = int(narms.max()) if B else 0
+    for k in range(kmax):
         rows = idx[:, k]
         active = (k < narms) & (rows >= 0)
         rr = rows.clamp(min=0).long()
@@ -427,25 +436,54 @@ def run_arm_steps(pool, plen, idx, amode, aw, narms, *, N, L, P, m, n, g,
     return st
 
 
+def as_devices(devices) -> List[torch.device]:
+    """A device (or its name) or a sequence of them, as a list."""
+    if isinstance(devices, (list, tuple)):
+        return [torch.device(d) for d in devices]
+    return [torch.device(devices)]
+
+
 def build_tile_program(*, N: int, L: int, K: int, P: int, m: int, n: int,
-                       g: int, B: int, A: int, device):
-    """The tile program of one shape class on one device (the
-    ``ndev == 1`` case of hypo_tpu device_full.build_tile_program):
-    ``tile(pool i8 [A, L], plen i32 [A], idx i32 [B, K], amode i8 [B, K],
-    aw i32 [B, K], narms i32 [B], th i32 [B]) -> int8 [B, N//2 + 4]``
-    (see _finish_packed), computed on ``device``.  Arguments may be
-    numpy arrays or tensors; the arm loop runs to the tile's largest
-    arm count."""
-    device = torch.device(device)
+                       g: int, B: int, A: int, devices):
+    """The tile program of one shape class over ``devices`` (a device or
+    a list; hypo_tpu device_full.build_tile_program with ndev =
+    len(devices)): ``tile(pool i8 [A, L], plen i32 [A], idx i32 [B, K],
+    amode i8 [B, K], aw i32 [B, K], narms i32 [B], th i32 [B]) -> int8
+    [B, N//2 + 4]`` (see _finish_packed).  Arguments may be numpy arrays
+    or tensors.
+
+    The B rows split into len(devices) contiguous blocks of B // ndev
+    (B must divide by ndev, as in the JAX package); the arm pool goes to
+    every device.  Each block runs its arm loop to its own largest arm
+    count, taken from the host's narms, and its consensus on its own
+    device.  Every block is launched before any is read back; with
+    several devices the blocks' outputs are concatenated in row order
+    on the host, with one the output stays on its device."""
+    devices = as_devices(devices)
+    ndev = len(devices)
+    if not ndev or B % ndev:
+        raise ValueError(f"build_tile_program: B={B} rows do not split "
+                         f"into {ndev} equal device blocks")
+    blk = B // ndev
 
     def tile(pool, plen, idx, amode, aw, narms, th):
         if tuple(pool.shape) != (A, L) or tuple(idx.shape) != (B, K):
             raise ValueError(f"tile: pool {tuple(pool.shape)} / idx "
                              f"{tuple(idx.shape)}, expected {(A, L)} / "
                              f"{(B, K)}")
-        st = run_arm_steps(pool, plen, idx, amode, aw, narms, N=N, L=L, P=P,
-                           m=m, n=n, g=g, device=device)
-        th = torch.as_tensor(th, device=device).to(_I32)
-        return _finish_packed(st, th, N=N, P=P)
+        narms_h = (narms.cpu().numpy() if torch.is_tensor(narms)
+                   else np.asarray(narms))
+        outs = []
+        for d, dev in enumerate(devices):
+            r = slice(d * blk, (d + 1) * blk)
+            kmax = int(narms_h[r].max()) if blk else 0
+            st = run_arm_steps(pool, plen, idx[r], amode[r], aw[r], narms[r],
+                               N=N, L=L, P=P, m=m, n=n, g=g, device=dev,
+                               kmax=kmax)
+            th_d = torch.as_tensor(th[r], device=dev).to(_I32)
+            outs.append(_finish_packed(st, th_d, N=N, P=P))
+        if ndev == 1:
+            return outs[0]
+        return torch.cat([o.cpu() for o in outs])
 
     return tile

@@ -15,7 +15,15 @@ before.  Long windows that reach it run their curated second round as a
 new job.
 
 Each tile is one call of the tile program (poa.device_full.
-build_tile_program) on this runner's device.  LONG windows (wtype != 0),
+build_tile_program) over this runner's devices: with ndev of them the
+tile's B rows split into ndev blocks of B // ndev, one a device, and the
+runner stripes a tile's windows across the blocks (window t of a tile in
+row (t % ndev) * (B // ndev) + t // ndev, as the JAX package does), so
+each block gets a like mix of arm counts.  ``stats["rows_per_device"]``
+counts the windows each block got, on both paths (a list of ints; the
+JAX package counts them in run_polish_batch only, with ndev > 1).
+``HYPO_POA_NDEV`` caps ndev at its value, which must not exceed the
+devices the runner is given.  LONG windows (wtype != 0),
 windows that fit no shape class and windows that overflow a class cap
 on the device go to the host engine (engine.ConsensusEngine), as in the
 JAX package: that routing is part of the algorithm.  ``stats`` counts
@@ -28,6 +36,7 @@ aligner under host_fallbacks.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,7 +46,7 @@ from ..native import host_api
 from . import GLOBAL_ALPHABET, GLOBAL_CODE, NW
 from .batch import DeviceConsensusRunner, _Job
 from .cuda_poa import check_scores
-from .device_full import build_tile_program
+from .device_full import as_devices, build_tile_program
 from .engine import CURATE_THRESH, ConsensusEngine
 from .host_runner import build_batch_jobs, materialize_arms_bulk
 
@@ -49,8 +58,28 @@ CLASSES: Tuple[Tuple[int, int, int, int, int], ...] = (
 )
 P_FULL = 8
 # CPU tensors (tests only): padded windows are real compute, so the
-# tile shrinks as in the JAX package off-TPU (full_runner.py:167-174)
+# tile shrinks as in the JAX package off-TPU (full_runner.py:167-174),
+# where B = max(8 * ndev, 64): 64 up to the 8 devices allowed here
 _CPU_TILE_B = 64
+_CPU_MAX_NDEV = 8
+
+
+def runner_devices(device) -> List:
+    """The devices of a FullDeviceRunner given ``device`` (a device or a
+    list): the first HYPO_POA_NDEV of them when that is set.  Raises if
+    HYPO_POA_NDEV exceeds them, or for more than 8 CPU devices."""
+    devs = as_devices(device)
+    env = os.environ.get("HYPO_POA_NDEV")
+    if env:
+        n = int(env)
+        if not 1 <= n <= len(devs):
+            raise ValueError(f"HYPO_POA_NDEV={n}, but the runner has "
+                             f"{len(devs)} device(s): {devs}")
+        devs = devs[:n]
+    if devs[0].type == "cpu" and len(devs) > _CPU_MAX_NDEV:
+        raise ValueError(f"FullDeviceRunner: at most {_CPU_MAX_NDEV} CPU "
+                         f"devices (the CPU tile has {_CPU_TILE_B} rows)")
+    return devs
 
 
 def _dedup(seqs) -> List[Tuple[str, int, int]]:
@@ -78,14 +107,20 @@ def _decode(codes: np.ndarray) -> str:
 
 
 class FullDeviceRunner(DeviceConsensusRunner):
-    """Device engine over tiles, computing on ``device`` (a CUDA device;
-    CPU tensors in tests): the same job model as DeviceConsensusRunner,
-    with each window's whole POA and consensus on the device."""
+    """Device engine over tiles, computing on ``device`` (a CUDA device
+    or a list of them, see runner_devices; CPU tensors in tests): the
+    same job model as DeviceConsensusRunner, with each window's whole
+    POA and consensus on the devices."""
 
     KERNELS = ("poa_dp", "consensus")
 
     def __init__(self, sp: ScoreParams, device, threads: int = 0):
-        super().__init__(sp, device)
+        devices = runner_devices(device)
+        super().__init__(sp, devices[0])
+        self.devices = devices
+        self.ndev = len(devices)
+        for ci in range(len(CLASSES)):      # raises unless B splits
+            self._program(ci, self.short_scores)
         self.threads = threads
         self.host_engine = ConsensusEngine(sp)
         self.stats.update({"full_dispatches": 0, "full_windows": 0,
@@ -93,7 +128,8 @@ class FullDeviceRunner(DeviceConsensusRunner):
                            "host_long_windows": 0,
                            # per shape class (index into CLASSES)
                            "class_tiles": [0] * len(CLASSES),
-                           "class_windows": [0] * len(CLASSES)})
+                           "class_windows": [0] * len(CLASSES),
+                           "rows_per_device": [0] * self.ndev})
 
     @classmethod
     def check_scores(cls, sp: ScoreParams, long_reads: bool) -> None:
@@ -118,13 +154,28 @@ class FullDeviceRunner(DeviceConsensusRunner):
         L, N, K, B, A = self._class_shape(ci)
         m, n, g = scores
         return build_tile_program(N=N, L=L, K=K, P=P_FULL, m=m, n=n, g=g,
-                                  B=B, A=A, device=self.device)
+                                  B=B, A=A, devices=self.devices)
 
-    def _count_tile(self, ci: int, cnt: int) -> None:
+    def _count_tile(self, ci: int, rows: np.ndarray) -> None:
+        """Count a tile of len(rows) windows in tile rows ``rows``."""
         self.stats["full_dispatches"] += 1
-        self.stats["full_windows"] += cnt
+        self.stats["full_windows"] += len(rows)
         self.stats["class_tiles"][ci] += 1
-        self.stats["class_windows"][ci] += cnt
+        self.stats["class_windows"][ci] += len(rows)
+        blk = self._class_shape(ci)[3] // self.ndev
+        per = np.bincount(np.asarray(rows) // blk, minlength=self.ndev)
+        for d in range(self.ndev):
+            self.stats["rows_per_device"][d] += int(per[d])
+
+    def _row_order(self, n: int, B: int) -> np.ndarray:
+        """Tile row of each of n windows: striped across the device
+        blocks (hypo_tpu full_runner._row_order)."""
+        nd = self.ndev
+        if nd <= 1:
+            return np.arange(n, dtype=np.int64)
+        blk = B // nd
+        i = np.arange(n, dtype=np.int64)
+        return (i % nd) * blk + (i // nd)
 
     def run_polish_batch(self, contigs) -> int:
         jobs, job_refs, fallback, host_windows, count = build_batch_jobs(
@@ -175,13 +226,13 @@ class FullDeviceRunner(DeviceConsensusRunner):
             while lo < len(order):
                 hi, pool, plen, idxt, amode, aw, narms, th, row_of = \
                     host_api.tile_pack(order, lo, jobs, job_th, B, K, A, L,
-                                       1)
+                                       self.ndev)
                 packed = tile_fn(pool, plen, idxt, amode, aw, narms,
                                  th).cpu().numpy()
                 cnt = hi - lo
                 out, out_len = host_api.tile_finalize(
                     packed, row_of[:cnt], cnt, 0, N)
-                self._count_tile(ci, cnt)
+                self._count_tile(ci, row_of[:cnt])
                 for t in range(cnt):
                     ctg, wi = job_refs[order[lo + t]]
                     if out_len[t] < 0:
@@ -318,8 +369,9 @@ class FullDeviceRunner(DeviceConsensusRunner):
 
     def _dispatch_tile(self, grp: List[_Job], ci: int, scores):
         """Pack one tile (deduplicated arm pool + per-window index table,
-        window j in row j) and launch it; returns the tile program's
-        output tensor, not yet read back."""
+        window j in row _row_order(...)[j]) and launch it; returns (the
+        tile program's output tensor, not yet read back with one device,
+        the rows)."""
         L, N, K, B, A = self._class_shape(ci)
         tile_fn = self._program(ci, scores)
         pool_idx: Dict[str, int] = {}
@@ -329,7 +381,9 @@ class FullDeviceRunner(DeviceConsensusRunner):
         aw = np.zeros((B, K), np.int32)
         narms = np.zeros(B, np.int32)
         th = np.zeros(B, np.int32)
-        for b, job in enumerate(grp):
+        rows = self._row_order(len(grp), B)
+        for j, job in enumerate(grp):
+            b = rows[j]
             narms[b] = len(job.ext)
             th[b] = self._curate_threshold(job)
             for k, (s, md, w) in enumerate(job.ext):
@@ -352,10 +406,11 @@ class FullDeviceRunner(DeviceConsensusRunner):
             within = np.arange(len(codes)) - np.repeat(starts, lens)
             dst = np.repeat(np.arange(len(strs)) * L, lens) + within
             pool.reshape(-1)[dst] = codes
-        self._count_tile(ci, len(grp))
-        return tile_fn(pool, plen, idxt, amode, aw, narms, th)
+        self._count_tile(ci, rows)
+        return tile_fn(pool, plen, idxt, amode, aw, narms, th), rows
 
     def _collect_full(self, grp: List[_Job], handle) -> List[_Job]:
+        handle, rows = handle
         packed = handle.cpu().numpy()           # one transfer
         half = packed.shape[1] - 4
         nib = packed[:, :half].view(np.uint8)
@@ -367,7 +422,8 @@ class FullDeviceRunner(DeviceConsensusRunner):
                    << 8))
         ovf = packed[:, half + 2] != 0
         out: List[_Job] = []
-        for b, job in enumerate(grp):
+        for j, job in enumerate(grp):
+            b = rows[j]
             if ovf[b]:
                 self.stats["full_overflows"] += 1
                 spawned = self._host_finish(job)

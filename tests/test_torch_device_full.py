@@ -111,7 +111,7 @@ def test_tile_program_bytes_match_jax(case):
     kw = dict(N=N, L=L, K=K, P=P, B=B, A=A, **SC)
     want = np.asarray(DF.build_tile_program(**kw, dp_impl="xla",
                                             ndev=1)(*tile))
-    got = TF.build_tile_program(**kw, device=CPU)(*tile)
+    got = TF.build_tile_program(**kw, devices=CPU)(*tile)
     assert got.dtype == torch.int8 and tuple(got.shape) == (B, N // 2 + 4)
     assert np.array_equal(got.numpy(), want)
     assert want[0, N // 2 + 2] == 1          # the wild window overflowed

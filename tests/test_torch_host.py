@@ -1,10 +1,13 @@
 """The port's own copy of the host layer against the JAX package's, on
 the CPU: the simulator writes the same files, the command line with the
 host engine (--no-device-poa) writes the same FASTA, with and without
-the native host library, and the NumPy spec ColPoa gives the same
-consensus.  Every compared value is bytes or an integer: tolerance 0."""
+the native host library, the solid-k-mer command line writes the same
+bitmask, and the NumPy spec ColPoa gives the same consensus.  Every compared value is bytes or an integer: tolerance 0."""
 import gzip
 import hashlib
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -72,6 +75,30 @@ def test_cli_host_engine_writes_the_same_fasta(sims, tmp_path, monkeypatch,
     assert len(jax_fa) > 0.9 * paths["genome_size"]
     assert hashlib.md5(_bytes(tmp_path / "port.fa")).hexdigest() == \
         hashlib.md5(jax_fa).hexdigest()
+
+
+def test_kmers_command_line_writes_the_same_bitmask(sims, tmp_path):
+    """``python -m hypo_tpu_torch.kmers`` and ``python -m hypo_tpu.kmers``
+    on the short-read simulation's reads: the same k, words and count
+    (the .npz files differ only in their zip timestamps)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {}
+    for pkg in ("hypo_tpu_torch", "hypo_tpu"):
+        out[pkg] = str(tmp_path / f"{pkg}.npz")
+        r = subprocess.run(
+            [sys.executable, "-m", f"{pkg}.kmers", "-k", "11", "-i",
+             sims["short"]["reads"], "-c", "30", "-o", out[pkg]],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stderr
+        assert "solid kmers:" in r.stderr
+    with np.load(out["hypo_tpu_torch"]) as got, \
+            np.load(out["hypo_tpu"]) as want:
+        assert sorted(got.files) == sorted(want.files)
+        for key in want.files:
+            assert got[key].dtype == want[key].dtype, key
+            assert np.array_equal(got[key], want[key]), key
+        assert int(got["num_solid"]) > 0
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -29,7 +29,9 @@ def test_port_imports_no_jax():
     code = ("import sys, hypo_tpu_torch, hypo_tpu_torch.cli, "
             "hypo_tpu_torch.poa.full_runner, hypo_tpu_torch.pipeline.polish,"
             " hypo_tpu_torch.state, hypo_tpu_torch.poa.batch, "
-            "hypo_tpu_torch.poa.cuda_tb; "
+            "hypo_tpu_torch.poa.cuda_tb, hypo_tpu_torch.parallel, "
+            "hypo_tpu_torch.parallel.distributed, hypo_tpu_torch.entry, "
+            "hypo_tpu_torch.kmers.__main__; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib')))")
     r = _run(["-c", code])
@@ -44,8 +46,13 @@ def test_port_stands_alone(tmp_path):
     code = f"""
 import importlib, os, pkgutil, sys
 import hypo_tpu_torch
-for mod in pkgutil.walk_packages(hypo_tpu_torch.__path__, "hypo_tpu_torch."):
-    importlib.import_module(mod.name)
+names = [mod.name for mod in
+         pkgutil.walk_packages(hypo_tpu_torch.__path__, "hypo_tpu_torch.")]
+assert {{"hypo_tpu_torch.entry", "hypo_tpu_torch.kmers.__main__",
+         "hypo_tpu_torch.parallel.distributed",
+         "hypo_tpu_torch.parallel.mesh"}} <= set(names), names
+for name in names:
+    importlib.import_module(name)
 from hypo_tpu_torch import cli, sim
 from hypo_tpu_torch.native import host_api
 assert host_api.available()
@@ -110,7 +117,7 @@ def cli_inputs(tmp_path):
 @pytest.mark.parametrize("extra,message", [
     (["--device-poa"], "CUDA"),
     (["--device-poa", "--device-poa-mode", "exact"], "CUDA"),
-    (["--nproc", "2"], "not ported"),
+    (["--nproc", "2", "--procid", "2"], "--procid must be in"),
     # scores the DP kernel's int16 cells cannot hold at the mode's largest
     # shape (full: N 1024 + L 510; exact: N 1024 + L 1024), refused before
     # any host stage; scores a mode does not launch are not checked
@@ -170,7 +177,7 @@ def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda_device):
 
 def test_tile_program_rejects_wrong_tile_shape():
     tile = TF.build_tile_program(N=32, L=12, K=3, P=4, m=5, n=-4, g=-8, B=4,
-                                 A=8, device="cpu")
+                                 A=8, devices="cpu")
     with pytest.raises(ValueError, match="expected"):
         tile(np.zeros((8, 12), np.int8), np.zeros(8, np.int32),
              np.full((5, 3), -1, np.int32), np.zeros((5, 3), np.int8),
