@@ -76,6 +76,14 @@ prints its last line):
      call against its plain version, ``entry.dryrun_multichip(2)`` over
      the same two devices, and two processes started together that
      build one kernel under a fresh name (the build's race).
+  10. the port's measurement tools on phase 6's 4 Mbp simulation, each
+     a subprocess whose output is printed here: ``python -m
+     hypo_tpu_torch.bench --sim <sim_4m>`` (the host engine,
+     then one device process polishing cold and warm: the pipeline
+     tables, the md5 check, the headline; every md5 must equal the
+     pin) and ``python -m hypo_tpu_torch.tools.profile_device 2048``
+     (the class-0 arm step's parts and the step replayed from a CUDA
+     graph, which must equal the eager step).
 Phases 6-9 run the port in this process, every launch counter set to 0
 just before each run and read just after.  Nothing of hypo_tpu or jax
 is imported or run.  Tolerance everywhere: 0 (every compared value is
@@ -1326,6 +1334,47 @@ def phase_sharded(tmp: str, genome_size: int = 4_000_000) -> tuple:
     return ranks, split
 
 
+# -- 10. the bench and the profile tool ----------------------------------------
+
+def run_tool(args, what: str) -> tuple:
+    """``python -m <args>`` from the repo root, its output printed here;
+    returns (stdout, stderr).  Raises if it exits non-zero."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", *args], cwd=HERE,
+                       env=dict(os.environ, PYTHONPATH=HERE),
+                       capture_output=True, text=True, timeout=900)
+    for line in (r.stderr + r.stdout).splitlines():
+        if line.startswith(("[bench]", "[prof]", "{")):
+            log(f"{what}: {line}")
+    if r.returncode != 0:
+        raise RuntimeError(f"{what} exited with {r.returncode}:\n"
+                           f"{r.stderr[-3000:]}")
+    log(f"{what}: {time.time() - t0:.1f} s")
+    return r.stdout, r.stderr
+
+
+def phase_tools(tmp: str) -> None:
+    sim = os.path.join(tmp, "sim_4m")
+    out, err = run_tool(["hypo_tpu_torch.bench", "--sim", sim], "bench")
+    head = json.loads(out.strip().splitlines()[-1])
+    sec = json.loads(re.search(r"\[bench\] secondary (\{.*\})",
+                               err).group(1))
+    pin = PINNED_MD5["sim_4m"]
+    md5s = {k: sec[k] for k in ("host_md5", "cold_md5", "warm_md5")}
+    log(f"bench md5s {md5s}, pinned {pin}; headline {json.dumps(head)}")
+    if set(md5s.values()) != {pin}:
+        raise RuntimeError("bench: a FASTA differs from the pinned md5")
+    if head.get("metric") != "pipeline_windows_per_sec_per_chip":
+        raise RuntimeError(f"bench: no headline ({head})")
+    out, _err = run_tool(["hypo_tpu_torch.tools.profile_device", "2048"],
+                         "profile tool")
+    rows = json.loads(out.strip().splitlines()[-1])["rows"]
+    if [r["part"] for r in rows][-1] != "step (graph)" or \
+            not rows[-1].get("equal_to_eager"):
+        raise RuntimeError("profile tool: no graph-replayed step equal to "
+                           "the eager step")
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1357,6 +1406,7 @@ def main() -> None:
         paths["no_native_200kbp_hybrid"] = phase_no_native(tmp)
         paths["sharded_2rank_4mbp"], paths["split_2dev_4mbp"] = \
             phase_sharded(tmp)
+        phase_tools(tmp)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
     cons = {k: {f: x for f, x in v.items() if f not in ("tile", "targs")}

@@ -14,7 +14,9 @@ pipeline (alignment, contig, window), the host POA engines, the
 copy of hypo_tpu's under the same paths and names; each copy's
 docstring names its original.  The CUDA kernels and the native host
 libraries are built at first use into the git-ignored ``_build/``
-directory (``_build.py``).
+directory (``_build.py``).  ``bench`` measures the device path's
+pipeline throughput against the host engine, and ``tools`` holds the
+profile tool and the long-window statistics.
 """
 
 __version__ = "0.1.0"

@@ -408,17 +408,37 @@ def _finish_packed(st: PoaState, th, *, N, P):
     return torch.cat([packed, meta], dim=1).to(torch.uint8).view(torch.int8)
 
 
+def upload(x, device, keep=None) -> torch.Tensor:
+    """``x`` (a numpy array or a tensor) on ``device``.  A numpy array
+    bound for a CUDA device is staged in pinned host memory and copied
+    with non_blocking=True, so that the upload does not wait for the
+    device (a copy from pageable memory ends in a stream synchronize);
+    its pinned buffer is appended to ``keep`` when given, for the caller
+    to hold until it has read what the device computed from it."""
+    device = torch.device(device)
+    if torch.is_tensor(x):
+        return x.to(device)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != "cuda":
+        return t.to(device)
+    t = t.pin_memory()
+    if keep is not None:
+        keep.append(t)
+    return t.to(device, non_blocking=True)
+
+
 def run_arm_steps(pool, plen, idx, amode, aw, narms, *, N, L, P, m, n, g,
                   device, kmax=None) -> PoaState:
     """Merge every window's arms into a fresh graph state on ``device``.
     pool [A, L] arm codes; plen [A]; idx [B, K] pool row of arm k of
-    window b (-1 none); amode [B, K]; aw [B, K] weights; narms [B].
+    window b (-1 none); amode [B, K]; aw [B, K] weights; narms [B]
+    (numpy arrays are uploaded with ``upload``).
     The arm loop runs ``kmax`` steps, by default the largest of narms
     (read back from the device when narms lies there); a window's result
     does not depend on it as long as it is at least that window's
     narms, since a window past its arms is inactive."""
     pool, plen, idx, amode, aw, narms = (
-        torch.as_tensor(x, device=device).to(_I32)
+        upload(x, device).to(_I32)
         for x in (pool, plen, idx, amode, aw, narms))
     B = idx.shape[0]
     st = init_state(N, P, B, device)
@@ -448,17 +468,20 @@ def build_tile_program(*, N: int, L: int, K: int, P: int, m: int, n: int,
     """The tile program of one shape class over ``devices`` (a device or
     a list; hypo_tpu device_full.build_tile_program with ndev =
     len(devices)): ``tile(pool i8 [A, L], plen i32 [A], idx i32 [B, K],
-    amode i8 [B, K], aw i32 [B, K], narms i32 [B], th i32 [B]) -> int8
-    [B, N//2 + 4]`` (see _finish_packed).  Arguments may be numpy arrays
-    or tensors.
+    amode i8 [B, K], aw i32 [B, K], narms i32 [B], th i32 [B], keep=None)
+    -> int8 [B, N//2 + 4]`` (see _finish_packed).  Arguments may be
+    numpy arrays or tensors; numpy arrays go up through pinned memory
+    without a host sync (``upload``), their pinned buffers appended to
+    the list ``keep`` when one is given.  The output is not read back:
+    a call returns once its work is queued on the devices.
 
     The B rows split into len(devices) contiguous blocks of B // ndev
     (B must divide by ndev, as in the JAX package); the arm pool goes to
     every device.  Each block runs its arm loop to its own largest arm
     count, taken from the host's narms, and its consensus on its own
-    device.  Every block is launched before any is read back; with
-    several devices the blocks' outputs are concatenated in row order
-    on the host, with one the output stays on its device."""
+    device.  With several devices the blocks' outputs are concatenated
+    in row order on the first device (device-to-device copies, which do
+    not wait on the host)."""
     devices = as_devices(devices)
     ndev = len(devices)
     if not ndev or B % ndev:
@@ -466,7 +489,7 @@ def build_tile_program(*, N: int, L: int, K: int, P: int, m: int, n: int,
                          f"into {ndev} equal device blocks")
     blk = B // ndev
 
-    def tile(pool, plen, idx, amode, aw, narms, th):
+    def tile(pool, plen, idx, amode, aw, narms, th, keep=None):
         if tuple(pool.shape) != (A, L) or tuple(idx.shape) != (B, K):
             raise ValueError(f"tile: pool {tuple(pool.shape)} / idx "
                              f"{tuple(idx.shape)}, expected {(A, L)} / "
@@ -477,13 +500,14 @@ def build_tile_program(*, N: int, L: int, K: int, P: int, m: int, n: int,
         for d, dev in enumerate(devices):
             r = slice(d * blk, (d + 1) * blk)
             kmax = int(narms_h[r].max()) if blk else 0
-            st = run_arm_steps(pool, plen, idx[r], amode[r], aw[r], narms[r],
-                               N=N, L=L, P=P, m=m, n=n, g=g, device=dev,
-                               kmax=kmax)
-            th_d = torch.as_tensor(th[r], device=dev).to(_I32)
+            st = run_arm_steps(*(upload(x, dev, keep) for x in (
+                pool, plen, idx[r], amode[r], aw[r], narms[r])),
+                N=N, L=L, P=P, m=m, n=n, g=g, device=dev, kmax=kmax)
+            th_d = upload(th[r], dev, keep).to(_I32)
             outs.append(_finish_packed(st, th_d, N=N, P=P))
         if ndev == 1:
             return outs[0]
-        return torch.cat([o.cpu() for o in outs])
+        return torch.cat([o.to(devices[0], non_blocking=True)
+                          for o in outs])
 
     return tile

@@ -32,14 +32,28 @@ the rest under host_fallbacks (the JAX package adds both to
 host_long_windows); ``run_windows`` counts as the JAX package does,
 LONG windows under host_long_windows and each job finished on the host
 aligner under host_fallbacks.
+
+Both paths dispatch every tile of a call (of a wave, in run_windows)
+before they read the first one back, as the JAX package does: the tile
+program queues its work without a host sync (pinned uploads, the arm
+loop's bound from the host's narms), then the runner drains the devices
+(``_drain``) and reads the tiles back in order (``_readback``).  With
+``HYPO_POA_DEBUG`` set, both print the JAX runner's stage lines
+(``[poa] ...``) to stdout.  ``warm()`` builds the three kernels and runs
+the tile program once on a zero tile in a background thread, as the JAX
+package does, so that both overlap the host stages; the first dispatch
+waits for the thread and raises the error it met, if any.
 """
 from __future__ import annotations
 
 import math
 import os
+import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import ScoreParams
 from ..native import host_api
@@ -106,19 +120,29 @@ def _decode(codes: np.ndarray) -> str:
     return _ALPHA_LUT[codes].tobytes().decode()
 
 
+def _debug() -> bool:
+    return bool(os.environ.get("HYPO_POA_DEBUG"))
+
+
+def _log(msg: str) -> None:
+    print(f"[poa] {msg}", flush=True)
+
+
 class FullDeviceRunner(DeviceConsensusRunner):
     """Device engine over tiles, computing on ``device`` (a CUDA device
     or a list of them, see runner_devices; CPU tensors in tests): the
     same job model as DeviceConsensusRunner, with each window's whole
     POA and consensus on the devices."""
 
-    KERNELS = ("poa_dp", "consensus")
+    KERNELS = ("poa_dp", "poa_tb", "consensus")
 
     def __init__(self, sp: ScoreParams, device, threads: int = 0):
         devices = runner_devices(device)
         super().__init__(sp, devices[0])
         self.devices = devices
         self.ndev = len(devices)
+        self._warm_thread: Optional[threading.Thread] = None
+        self._warm_error: Optional[Exception] = None
         for ci in range(len(CLASSES)):      # raises unless B splits
             self._program(ci, self.short_scores)
         self.threads = threads
@@ -130,6 +154,68 @@ class FullDeviceRunner(DeviceConsensusRunner):
                            "class_tiles": [0] * len(CLASSES),
                            "class_windows": [0] * len(CLASSES),
                            "rows_per_device": [0] * self.ndev})
+
+    # -- warm-up, dispatch, drain, readback --------------------------------
+    def warm(self, classes=(0,)) -> threading.Thread:
+        """In a background thread, build (or load) the kernels on a CUDA
+        device, then run the tile program of each class in ``classes``
+        once on a zero tile (hypo_tpu full_runner.warm): every window
+        empty but the first, which has one empty arm slot, so that the
+        arm loop runs one step and all three kernels launch.  The first
+        dispatch joins the thread and raises the error it met, if any;
+        unlike the JAX package's, a failed warm-up is never swallowed.
+        Returns the thread."""
+        def run():
+            try:
+                super(FullDeviceRunner, self).warm()
+                for ci in classes:
+                    L, N, K, B, A = self._class_shape(ci)
+                    idx = np.full((B, K), -1, np.int32)
+                    narms = np.zeros(B, np.int32)
+                    narms[0] = 1
+                    self._program(ci, self.short_scores)(
+                        np.zeros((A, L), np.int8), np.zeros(A, np.int32),
+                        idx, np.zeros((B, K), np.int8),
+                        np.zeros((B, K), np.int32), narms,
+                        np.zeros(B, np.int32))
+                self._drain()
+            except Exception as e:  # raised by the first dispatch
+                self._warm_error = e
+
+        self._join_warm()
+        self._warm_thread = threading.Thread(target=run, daemon=True,
+                                             name="hypo-tile-warm")
+        self._warm_thread.start()
+        return self._warm_thread
+
+    def _join_warm(self) -> None:
+        """Wait for the warm-up thread, if one is running, and raise the
+        error it met."""
+        t, self._warm_thread = self._warm_thread, None
+        if t is not None:
+            t.join()
+        err, self._warm_error = self._warm_error, None
+        if err is not None:
+            raise RuntimeError("FullDeviceRunner: the warm-up failed") \
+                from err
+
+    def _dispatch(self, ci: int, scores, arrays):
+        """Queue one tile on the devices (after the warm-up); returns
+        (its output, still on the device, the pinned upload buffers that
+        must live until it is read)."""
+        self._join_warm()
+        keep: List[torch.Tensor] = []
+        return self._program(ci, scores)(*arrays, keep=keep), keep
+
+    def _drain(self) -> None:
+        """Wait for the work queued on the runner's CUDA devices."""
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _readback(self, handle) -> np.ndarray:
+        """A dispatched tile's packed output on the host."""
+        return handle[0].cpu().numpy()
 
     @classmethod
     def check_scores(cls, sp: ScoreParams, long_reads: bool) -> None:
@@ -178,13 +264,20 @@ class FullDeviceRunner(DeviceConsensusRunner):
         return (i % nd) * blk + (i // nd)
 
     def run_polish_batch(self, contigs) -> int:
+        debug = _debug()
+        t0 = time.time()
         jobs, job_refs, fallback, host_windows, count = build_batch_jobs(
             contigs, self.stats)
         self.stats["host_long_windows"] += len(host_windows)
-        if jobs is not None:
-            fallback.extend(self._run_tiles(jobs, job_refs))
+        if debug:
+            nj = jobs.n_jobs if jobs is not None else 0
+            _log(f"native jobs: {time.time()-t0:.2f}s ({nj} jobs, "
+                 f"{len(host_windows)} host long, {len(fallback)} "
+                 f"pre-fallbacks)")
+        fallback.extend(self._run_tiles(jobs, job_refs, debug))
         # host-engine leftovers: LONG windows (arms already materialized)
         # + fallbacks (arms rebuilt from the flat table, bulk per contig)
+        t0 = time.time()
         self.stats["host_fallbacks"] += len(fallback)
         by_ctg: Dict[int, List[int]] = {}
         ctg_of = {}
@@ -198,50 +291,71 @@ class FullDeviceRunner(DeviceConsensusRunner):
         if host_windows:
             self.host_engine.generate_consensus_batch(host_windows,
                                                       self.threads)
+        if debug and (fallback or host_windows):
+            _log(f"host leftovers: {time.time()-t0:.2f}s "
+                 f"({len(fallback)} fallbacks)")
         return count
 
-    def _run_tiles(self, jobs, job_refs) -> List:
-        """Run every job that fits a shape class through device tiles,
-        assigning consensus in place; returns the (contig, window)
-        refs left for the host engine (no class, or overflowed)."""
-        nj = jobs.n_jobs
-        job_th = np.zeros(nj, np.int32)     # short windows keep every base
-        need_n = np.maximum(2 * jobs.job_maxlen, jobs.job_maxlen + 32)
-        cls = np.full(nj, -1, np.int64)
-        for ci, (L, N, K, _B, _A) in enumerate(CLASSES):
-            ok = ((cls < 0) & (jobs.job_maxlen <= L) & (need_n <= N)
-                  & (jobs.job_next <= K))
-            cls[ok] = ci
-        left = [job_refs[j] for j in np.nonzero(cls < 0)[0]]
-        for ci in range(len(CLASSES)):
-            idx = np.nonzero(cls == ci)[0]
-            if not len(idx):
-                continue
-            order = np.ascontiguousarray(
-                idx[np.lexsort((-jobs.job_maxlen[idx],
-                                -jobs.job_next[idx]))], np.int64)
-            L, N, K, B, A = self._class_shape(ci)
-            tile_fn = self._program(ci, self.short_scores)
-            lo = 0
-            while lo < len(order):
-                hi, pool, plen, idxt, amode, aw, narms, th, row_of = \
-                    host_api.tile_pack(order, lo, jobs, job_th, B, K, A, L,
-                                       self.ndev)
-                packed = tile_fn(pool, plen, idxt, amode, aw, narms,
-                                 th).cpu().numpy()
-                cnt = hi - lo
-                out, out_len = host_api.tile_finalize(
-                    packed, row_of[:cnt], cnt, 0, N)
-                self._count_tile(ci, row_of[:cnt])
-                for t in range(cnt):
-                    ctg, wi = job_refs[order[lo + t]]
-                    if out_len[t] < 0:
-                        self.stats["full_overflows"] += 1
-                        left.append((ctg, wi))
-                    else:
-                        ctg.windows[wi].consensus = \
-                            out[t, :out_len[t]].tobytes().decode("latin1")
-                lo = hi
+    def _run_tiles(self, jobs, job_refs, debug: bool = False) -> List:
+        """Run every job (of ``jobs``, or none) that fits a shape class
+        through device tiles, assigning consensus in place: every tile
+        dispatched, the devices drained, then each tile read back and
+        finalized in order.  Returns the (contig, window) refs left for
+        the host engine (no class, or overflowed)."""
+        t0 = time.time()
+        left: List = []
+        handles = []
+        if jobs is not None:
+            nj = jobs.n_jobs
+            job_th = np.zeros(nj, np.int32)  # short windows keep every base
+            need_n = np.maximum(2 * jobs.job_maxlen, jobs.job_maxlen + 32)
+            cls = np.full(nj, -1, np.int64)
+            for ci, (L, N, K, _B, _A) in enumerate(CLASSES):
+                ok = ((cls < 0) & (jobs.job_maxlen <= L) & (need_n <= N)
+                      & (jobs.job_next <= K))
+                cls[ok] = ci
+            left = [job_refs[j] for j in np.nonzero(cls < 0)[0]]
+            for ci in range(len(CLASSES)):
+                idx = np.nonzero(cls == ci)[0]
+                if not len(idx):
+                    continue
+                order = np.ascontiguousarray(
+                    idx[np.lexsort((-jobs.job_maxlen[idx],
+                                    -jobs.job_next[idx]))], np.int64)
+                L, N, K, B, A = self._class_shape(ci)
+                lo = 0
+                while lo < len(order):
+                    hi, *arrays, row_of = host_api.tile_pack(
+                        order, lo, jobs, job_th, B, K, A, L, self.ndev)
+                    handles.append((self._dispatch(ci, self.short_scores,
+                                                   arrays),
+                                    order, lo, hi, row_of, N))
+                    self._count_tile(ci, row_of[:hi - lo])
+                    lo = hi
+        if debug:
+            _log(f"pack+dispatch: {time.time()-t0:.2f}s "
+                 f"({len(handles)} tiles)")
+        t0 = time.time()
+        self._drain()
+        if debug:
+            _log(f"device drain: {time.time()-t0:.2f}s")
+        t0 = time.time()
+        for handle, order, lo, hi, row_of, N in handles:
+            packed = self._readback(handle)
+            cnt = hi - lo
+            out, out_len = host_api.tile_finalize(
+                packed, row_of[:cnt], cnt, 0, N)
+            for t in range(cnt):
+                ctg, wi = job_refs[order[lo + t]]
+                if out_len[t] < 0:
+                    self.stats["full_overflows"] += 1
+                    left.append((ctg, wi))
+                else:
+                    ctg.windows[wi].consensus = \
+                        out[t, :out_len[t]].tobytes().decode("latin1")
+        if debug:
+            _log(f"readback+finalize: {time.time()-t0:.2f}s "
+                 f"stats={self.stats}")
         return left
 
     # -- the path without the native host library ----------------------------
@@ -287,6 +401,8 @@ class FullDeviceRunner(DeviceConsensusRunner):
         LONG windows on the host engine, trivial ones on the host, the
         rest in waves of device tiles, all tiles of a wave dispatched
         before the first is read back."""
+        debug = _debug()
+        t0 = time.time()
         jobs: List[_Job] = []
         host_long = []
         count = 0
@@ -313,8 +429,13 @@ class FullDeviceRunner(DeviceConsensusRunner):
             self.stats["host_long_windows"] += len(host_long)
             self.host_engine.generate_consensus_batch(host_long,
                                                       self.threads)
+        if debug:
+            _log(f"build jobs: {time.time()-t0:.2f}s ({len(jobs)} jobs, "
+                 f"{len(host_long)} host long)")
         active = jobs
+        wave = 0
         while active:
+            t0 = time.time()
             nxt: List[_Job] = []
             groups: Dict[tuple, List[_Job]] = {}
             for job in active:
@@ -332,6 +453,11 @@ class FullDeviceRunner(DeviceConsensusRunner):
                         nxt.append(spawned)
                     continue
                 groups.setdefault((ci, job.scores), []).append(job)
+            if debug:
+                ng = sum(len(g) for g in groups.values())
+                _log(f"wave {wave}: classify {time.time()-t0:.2f}s "
+                     f"({ng} device jobs)")
+            t0 = time.time()
             handles = []
             for (ci, scores), grp in sorted(groups.items(),
                                             key=lambda kv: kv[0]):
@@ -344,9 +470,23 @@ class FullDeviceRunner(DeviceConsensusRunner):
                     handles.append(
                         (tile, self._dispatch_tile(tile, ci, scores)))
                     lo = hi
+            if debug:
+                _log(f"wave {wave}: pack+dispatch {time.time()-t0:.2f}s "
+                     f"({len(handles)} tiles)")
+            # drain the devices before the first readback, then read
+            # every tile (no dispatches in between)
+            t0 = time.time()
+            self._drain()
+            if debug:
+                _log(f"wave {wave}: device drain {time.time()-t0:.2f}s")
+            t0 = time.time()
             for tile, handle in handles:
                 nxt.extend(self._collect_full(tile, handle))
+            if debug:
+                _log(f"wave {wave}: readback+finalize "
+                     f"{time.time()-t0:.2f}s  stats={self.stats}")
             active = nxt
+            wave += 1
         return count
 
     def _take_tile(self, grp: List[_Job], lo: int, ci: int):
@@ -369,11 +509,9 @@ class FullDeviceRunner(DeviceConsensusRunner):
 
     def _dispatch_tile(self, grp: List[_Job], ci: int, scores):
         """Pack one tile (deduplicated arm pool + per-window index table,
-        window j in row _row_order(...)[j]) and launch it; returns (the
-        tile program's output tensor, not yet read back with one device,
-        the rows)."""
+        window j in row _row_order(...)[j]) and launch it; returns
+        (``_dispatch``'s handle, the rows)."""
         L, N, K, B, A = self._class_shape(ci)
-        tile_fn = self._program(ci, scores)
         pool_idx: Dict[str, int] = {}
         strs: List[str] = []
         idxt = np.full((B, K), -1, np.int32)
@@ -407,11 +545,12 @@ class FullDeviceRunner(DeviceConsensusRunner):
             dst = np.repeat(np.arange(len(strs)) * L, lens) + within
             pool.reshape(-1)[dst] = codes
         self._count_tile(ci, rows)
-        return tile_fn(pool, plen, idxt, amode, aw, narms, th), rows
+        return self._dispatch(ci, scores, (pool, plen, idxt, amode, aw,
+                                           narms, th)), rows
 
     def _collect_full(self, grp: List[_Job], handle) -> List[_Job]:
         handle, rows = handle
-        packed = handle.cpu().numpy()           # one transfer
+        packed = self._readback(handle)
         half = packed.shape[1] - 4
         nib = packed[:, :half].view(np.uint8)
         codes = np.empty((packed.shape[0], 2 * half), np.uint8)

@@ -1,0 +1,218 @@
+"""Where the class-0 arm step's time goes on the card: the counterpart of
+``tools/profile_device.py``.
+
+    python -m hypo_tpu_torch.tools.profile_device [B=2048] [reps=4]
+                                                  [--device cuda|cpu]
+
+Builds a mid-POA class-0 state (L=126, N=256, P=8): 64 windows, each
+with 5 mutated copies of a random 120-base sequence (3% substitutions,
+every third arm one base shorter) merged by the port's ``run_arm_steps``
+on the chosen device, plus one more such arm per window; then tiles it
+to B windows.  Each part of an arm step is timed per call:
+
+  rank   device_full._rank_arrays_batch   (topological order, rank arrays)
+  dp     cuda_poa.poa_dp_batch            (kernel 1, the DP)
+  tb     device_full._traceback_matched_batch (kernel 3's tile emitter)
+  merge  device_full._merge               (the aligned arm into the graph)
+  cons   device_full._consensus_batch     (rank, kernel 2, reversal)
+  step   device_full._arm_step_batch      (rank + dp + tb + merge + select)
+
+and one more row, ``step (graph)``: one ``_arm_step_batch`` captured in a
+``torch.cuda.CUDAGraph`` and replayed; its output is compared leaf by
+leaf with the eager step's, and the tool fails if they differ.  The
+graph is a measurement here only (the runner launches eagerly); the
+kernels' launch counters tick at capture, not at replay.
+
+Each row gives the ms per call between CUDA events (``reps`` samples of
+10 back-to-back calls after a warm-up, median; it holds the host's
+issue work where that is longer than the device's), the device ms per
+call from torch.profiler (the summed durations of the device kernels
+and copies), and the device kernels and copies per call.  The last line
+of stdout is one JSON object with every row.  ``--device cpu`` (tests)
+times on the host clock and reports no device time and no graph row.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..poa import device_full as TF
+from ..poa.cuda_poa import poa_dp_batch
+from .timing import card, device_for, event_ms, fmt, profiled_ms, sync
+
+L, N, K, P = 126, 256, 16, 8
+SCORES = dict(m=5, n=-4, g=-8)
+NWIN, N_ARMS = 64, 5
+PARTS = ("rank", "dp", "tb", "merge", "cons", "step")
+
+
+def make_arms(nwin: int, n_arms: int, seed: int = 0):
+    """(arms [n_arms + 1, nwin, L] i32, lengths [n_arms + 1, nwin]) by
+    tools/profile_device.py's recipe, from the same numpy seed."""
+    rng = np.random.default_rng(seed)
+    base_len = L - 6
+    arms = np.zeros((n_arms + 1, nwin, L), np.int32)
+    alens = np.zeros((n_arms + 1, nwin), np.int32)
+    for w in range(nwin):
+        base = rng.integers(0, 4, base_len)
+        for a in range(n_arms + 1):
+            s = base.copy()
+            nmut = max(1, int(0.03 * base_len))
+            pos = rng.choice(base_len, nmut, replace=False)
+            s[pos] = (s[pos] + rng.integers(1, 4, nmut)) % 4
+            if a % 3 == 1:
+                s = np.delete(s, rng.integers(1, base_len - 1))
+            arms[a, w, :len(s)] = s
+            alens[a, w] = len(s)
+    return arms, alens
+
+
+def build_state(device, nwin: int = NWIN, n_arms: int = N_ARMS,
+                seed: int = 0):
+    """The graphs of ``nwin`` windows after ``n_arms`` arms each, merged
+    by run_arm_steps on ``device`` (arm a of window w in pool row
+    a * nwin + w, weight 1, mode NW); returns (PoaState, the next arm
+    [nwin, L], its lengths [nwin]) on ``device``."""
+    arms, alens = make_arms(nwin, n_arms, seed)
+    idx = np.full((nwin, K), -1, np.int32)
+    idx[:, :n_arms] = (np.arange(n_arms)[None, :] * nwin
+                       + np.arange(nwin)[:, None])
+    st = TF.run_arm_steps(
+        arms[:n_arms].reshape(n_arms * nwin, L).astype(np.int8),
+        alens[:n_arms].reshape(-1), idx, np.zeros((nwin, K), np.int8),
+        np.ones((nwin, K), np.int32), np.full(nwin, n_arms, np.int32),
+        N=N, L=L, P=P, **SCORES, device=device)
+    return (st, TF.upload(arms[n_arms], device),
+            TF.upload(alens[n_arms], device))
+
+
+def tile_to(x: torch.Tensor, B: int) -> torch.Tensor:
+    """x repeated along its first dimension to B rows."""
+    reps = -(-B // x.shape[0])
+    return x.repeat((reps,) + (1,) * (x.dim() - 1))[:B].contiguous()
+
+
+def step_inputs(B: int, device):
+    """(state, arm, arm_len, mode, active, w) of the class-0 step at B
+    windows on ``device``."""
+    st, arm, alen = build_state(device)
+    st = TF.PoaState(*(tile_to(x, B) for x in st))
+    arm, alen = tile_to(arm, B), tile_to(alen, B)
+    mode = torch.zeros(B, dtype=torch.int32, device=device)
+    active = torch.ones(B, dtype=torch.bool, device=device)
+    w = torch.ones(B, dtype=torch.int32, device=device)
+    return st, arm, alen, mode, active, w
+
+
+def parts(st, arm, alen, mode, active, w) -> Dict[str, callable]:
+    """Each part of the arm step as a call on these inputs, with the
+    intermediate inputs of dp, tb and merge computed once as the step
+    computes them."""
+    ra = TF._rank_arrays_batch(st, N)
+    act = active & (alen > 0) & (st.n_nodes > 0)
+    dp_args = (ra.node_code_r, ra.pred_rows, ra.pred_cnt_r, ra.is_end_r,
+               torch.where(act, st.n_nodes, 0), arm, alen, mode)
+    bp, max_row = poa_dp_batch(*dp_args, N=N, L=L, P=P, **SCORES)
+    matched = TF._traceback_matched_batch(bp, ra.pred_rows, alen, mode,
+                                          max_row, active=act, N=N, L=L,
+                                          P=P)
+    matched = torch.where((st.n_nodes == 0)[:, None], -1, matched)
+    return {
+        "rank": lambda: TF._rank_arrays_batch(st, N),
+        "dp": lambda: poa_dp_batch(*dp_args, N=N, L=L, P=P, **SCORES),
+        "tb": lambda: TF._traceback_matched_batch(
+            bp, ra.pred_rows, alen, mode, max_row, active=act, N=N, L=L,
+            P=P),
+        "merge": lambda: TF._merge(st, ra.node_col_r, matched, arm, alen, w,
+                                   N=N, L=L, P=P),
+        "cons": lambda: TF._consensus_batch(st, N=N, P=P),
+        "step": lambda: TF._arm_step_batch(st, arm, alen, mode, active, w,
+                                           N=N, L=L, P=P, **SCORES),
+    }
+
+
+def graph_step(step, dev):
+    """One call of ``step`` captured in a CUDA graph, after an eager
+    call on a side stream (so that every first-call setting is made
+    outside the capture); returns (graph, its static output)."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    return graph, out
+
+
+def row(name: str, fn, dev, reps: int, inner: int = 10) -> dict:
+    ms = event_ms(fn, dev, reps=reps, inner=inner)
+    dev_ms, per = profiled_ms(fn, dev)
+    return {"part": name, "ms": ms, "device_ms": dev_ms,
+            "device_activities_per_call": per}
+
+
+def log_row(r: dict) -> None:
+    print(f"[prof] {r['part']:12s}: {r['ms']:9.4f} ms/call (CUDA events"
+          f" or host clock), device {fmt(r['device_ms'])} ms/call, "
+          f"{fmt(r['device_activities_per_call'], 1)} device kernels and "
+          f"copies/call", flush=True)
+
+
+def profile(B: int, reps: int, dev, inner: int = 10) -> List[dict]:
+    """The table's rows (printed as they are measured); a row's ms is
+    the median of ``reps`` samples of ``inner`` calls."""
+    inputs = step_inputs(B, dev)
+    calls = parts(*inputs)
+    rows = []
+    for name in PARTS:
+        rows.append(row(name, calls[name], dev, reps, inner))
+        log_row(rows[-1])
+    if dev.type == "cuda":
+        eager = calls["step"]()
+        graph, out = graph_step(calls["step"], dev)
+        graph.replay()
+        sync(dev)
+        diff = [f for f, a, b in zip(TF.PoaState._fields, eager, out)
+                if not torch.equal(a, b)]
+        print(f"[prof] step (graph) replay vs eager step: "
+              + (f"leaves differ: {diff}" if diff else
+                 f"all {len(out)} leaves equal"), flush=True)
+        if diff:
+            raise RuntimeError(f"the CUDA graph's step differs from the "
+                               f"eager step in {diff}")
+        try:
+            r = row("step (graph)", graph.replay, dev, reps, inner)
+        except RuntimeError:   # the profiler saw no replayed kernel
+            r = {"part": "step (graph)",
+                 "ms": event_ms(graph.replay, dev, reps=reps, inner=inner),
+                 "device_ms": None, "device_activities_per_call": None}
+        r["equal_to_eager"] = True
+        rows.append(r)
+        log_row(r)
+    return rows
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("B", nargs="?", type=int, default=2048)
+    ap.add_argument("reps", nargs="?", type=int, default=4)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    opts = ap.parse_args(argv)
+    dev = device_for(opts.device)
+    where = card(dev)
+    print(f"[prof] device {where}, B={opts.B}, class 0 (L={L}, N={N}, "
+          f"P={P}), state of {NWIN} windows x {N_ARMS} arms tiled to B",
+          flush=True)
+    rows = profile(opts.B, opts.reps, dev)
+    print(json.dumps({"device": where, "B": opts.B, "rows": rows}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

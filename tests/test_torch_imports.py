@@ -31,7 +31,10 @@ def test_port_imports_no_jax():
             " hypo_tpu_torch.state, hypo_tpu_torch.poa.batch, "
             "hypo_tpu_torch.poa.cuda_tb, hypo_tpu_torch.parallel, "
             "hypo_tpu_torch.parallel.distributed, hypo_tpu_torch.entry, "
-            "hypo_tpu_torch.kmers.__main__; "
+            "hypo_tpu_torch.kmers.__main__, hypo_tpu_torch.bench, "
+            "hypo_tpu_torch.tools.profile_device, "
+            "hypo_tpu_torch.tools.long_window_stats, "
+            "hypo_tpu_torch.tools.timing; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib')))")
     r = _run(["-c", code])
@@ -50,7 +53,10 @@ names = [mod.name for mod in
          pkgutil.walk_packages(hypo_tpu_torch.__path__, "hypo_tpu_torch.")]
 assert {{"hypo_tpu_torch.entry", "hypo_tpu_torch.kmers.__main__",
          "hypo_tpu_torch.parallel.distributed",
-         "hypo_tpu_torch.parallel.mesh"}} <= set(names), names
+         "hypo_tpu_torch.parallel.mesh", "hypo_tpu_torch.bench",
+         "hypo_tpu_torch.tools.profile_device",
+         "hypo_tpu_torch.tools.long_window_stats",
+         "hypo_tpu_torch.tools.timing"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 from hypo_tpu_torch import cli, sim
