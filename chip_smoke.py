@@ -39,14 +39,20 @@ prints its last line):
      the last; rows above n_nodes hold what kernel 1 left there), with
      matched rebuilt from exact mode's emitter on the same inputs:
      exact equality, median times at the third step;
-  5. each tile through the tile program vs the NumPy spec
-     hypo_tpu_torch.poa.colpoa_ref.ColPoa on every window without
-     overflow (at least 256 / 128 of them); the three kernels' launch
-     counters > 0; how many rows the DP kernel keeps in its int16
-     device-memory copy (rows read from beyond its ring) over the
-     tile's arm steps; then where the class-0 tile's time goes: per-step
-     times with a sync around each call, and the device's busy share in
-     one torch.profiler trace of the same tile;
+  5. each tile through the tile program (its CUDA graphs captured at
+     that first tile) vs the eager arm steps and finish, and vs the
+     NumPy spec hypo_tpu_torch.poa.colpoa_ref.ColPoa on every window
+     without overflow (at least 256 / 128 of them); the three kernels'
+     launch counters > 0; how many rows the DP kernel keeps in its
+     int16 device-memory copy (rows read from beyond its ring) over the
+     tile's arm steps; then (5b) three different tiles of the class
+     dispatched back to back through the program before any readback,
+     each equal to the eager tile (run_tile_eager), with the capture's
+     time and graph memory and the host's launch calls in one tile,
+     eager and through the graphs; then where the class-0 tile's time
+     goes: the eager tile's per-step times with a sync around each
+     call, the eager and graph tiles' walls, and the device's busy
+     share in one torch.profiler trace of the graph tile;
   6. end to end at E. coli scale: a 4 Mbp / 30x simulation
      (``python -m hypo_tpu_torch.sim``) polished by ``hypo_tpu_torch.cli
      --device-poa`` (in this process, kernel launch counters reset just
@@ -81,9 +87,14 @@ prints its last line):
      hypo_tpu_torch.bench --sim <sim_4m>`` (the host engine,
      then one device process polishing cold and warm: the pipeline
      tables, the md5 check, the headline; every md5 must equal the
-     pin) and ``python -m hypo_tpu_torch.tools.profile_device 2048``
-     (the class-0 arm step's parts and the step replayed from a CUDA
-     graph, which must equal the eager step).
+     pin) and ``python -m hypo_tpu_torch.tools.profile_device 2048 2``
+     (the class-0 arm step's parts, the tile program's step graph,
+     which must equal the eager step, and a tile eager and through the
+     program's graphs, which must give the same bytes).
+Launch counters count kernels that ran: a launch captured in a graph
+counts at each replay (the capture's eager first call of each part
+counts once), so a path's counts are its arm steps (kernels 1, 3) and
+tiles (kernel 2), plus one of each for every capture.
 Phases 6-9 run the port in this process, every launch counter set to 0
 just before each run and read just after.  Nothing of hypo_tpu or jax
 is imported or run.  Tolerance everywhere: 0 (every compared value is
@@ -783,12 +794,14 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
                     **kw)
 
     TF._traceback_matched_batch = record
+    far = TF.poa_dp_batch = FarRows(poa_dp_batch)
     t0 = time.time()
     try:
         st = TF.run_arm_steps(pool, plen, idx, amode, aw, narms, **steps)
         torch.cuda.synchronize()
     finally:
         TF._traceback_matched_batch = walk
+        TF.poa_dp_batch = poa_dp_batch
     log(f"{name} tile arm steps ({int(narms.max())}): "
         f"{time.time() - t0:.2f} s; nodes max {int(st.n_nodes.max())}")
     tb = phase_tile_walk(name, calls, N, L, P)
@@ -828,16 +841,19 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
             f"{bd['bound_ms'] / versions['baseline_ms']:.4f}, this kernel "
             f"{bd['bound_ms'] / versions['new_ms']:.4f}")
 
-    # 5. the tile program vs the NumPy spec
+    # 5. the tile program (its graphs captured at this first tile) vs
+    # the eager arm steps and finish, and vs the NumPy spec
+    log(far.line(name))
     tile = TF.build_tile_program(N=N, L=L, K=K, P=P, B=B, A=len(pool),
                                  devices=dev, **SCORES)
     targs = (pool, plen, idx, amode, aw, narms, np.zeros(B, np.int32))
-    far = TF.poa_dp_batch = FarRows(poa_dp_batch)
-    try:
-        packed = tile(*targs).cpu().numpy()
-    finally:
-        TF.poa_dp_batch = poa_dp_batch
-    log(far.line(name))
+    packed_t = tile(*targs)
+    eager = TF._finish_packed(st, torch.zeros(B, dtype=torch.int32,
+                                              device=dev), N=N, P=P)
+    if not torch.equal(packed_t, eager):
+        raise RuntimeError(f"{name}: the tile program's graphs != the eager "
+                           f"arm steps and finish")
+    packed = packed_t.cpu().numpy()
     cc, cs, cl = (x.cpu().numpy() for x in TF._consensus_batch(st, N=N, P=P))
     nib = packed[:, :N // 2].view(np.uint8)
     codes = np.stack([nib & 0xF, nib >> 4], axis=2).reshape(B, N)
@@ -866,18 +882,74 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
         f"{poa_tb_matched.launches})")
     if min(launches.values()) <= 0 or poa_tb_matched.launches <= 0:
         raise RuntimeError("a kernel was never launched")
+    graphs = phase_graph(rng, name, tile, targs, N, L, P, dev)
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
                 tile=tile,
                 targs=targs, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
-                tb=tb, **versions)
+                tb=tb, graphs=graphs, **versions)
 
 
-def phase_profile(tile, targs) -> None:
-    """Where one tile's time goes, all in this one run: (a) the tile
-    program with a synchronize around every call of its steps; (b) the
-    tile unprofiled; (c) the tile under torch.profiler (CUDA activity
-    only): device kernels launched, their summed time, and the device's
-    busy share (union of kernel intervals over the traced wall)."""
+def phase_graph(rng, name, tile, targs, N, L, P, dev) -> dict:
+    """5b. The tile program's graphs against eager launches on three
+    tiles of this class dispatched back to back before any readback:
+    the phase's tile; its rows rolled by B // 3 with two arms fewer a
+    window (at least one); its rows reversed with curation thresholds
+    0-2.  Each output must equal run_tile_eager's (run_arm_steps then
+    _finish_packed) on the same tile; the first also equals ColPoa
+    (phase 5).  Logs the capture's time and graph memory
+    (torch.cuda.memory_reserved before and after it) and the host's
+    launch calls in one tile, eager and through the graphs."""
+    from hypo_tpu_torch.tools.profile_device import host_launches
+    pool, plen, idx, amode, aw, narms, th = targs
+    B, K = idx.shape
+    roll = np.roll(np.arange(B), B // 3)
+    fewer = np.maximum(narms[roll] - 2, 1).astype(np.int32)
+    idx2 = idx[roll]
+    idx2[np.arange(K)[None, :] >= fewer[:, None]] = -1
+    rev = np.arange(B)[::-1]
+    tiles = (targs,
+             (pool, plen, idx2, amode[roll], aw[roll], fewer, th[roll]),
+             (pool, plen, idx[rev], amode[rev], aw[rev], narms[rev],
+              rng.integers(0, 3, B).astype(np.int32)))
+    keep = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [tile(*t, keep=keep) for t in tiles]
+    issue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kw = dict(N=N, L=L, P=P, device=dev, **SCORES)
+    for i, (t, out) in enumerate(zip(tiles, outs)):
+        want = TF.run_tile_eager(*t, **kw)
+        if not torch.equal(out, want):
+            raise RuntimeError(f"{name} graph tile {i} != eager tile")
+    cap = tile.blocks[0].capture_stats
+    launches = {"eager": host_launches(
+        lambda: TF.run_tile_eager(*targs, **kw), dev),
+        "graphs": host_launches(lambda: tile(*targs), dev)}
+    log(f"{name} graphs: 3 tiles (arm steps {[int(t[5].max()) for t in tiles]}"
+        f") dispatched back to back equal the eager tiles; issue "
+        f"{issue:.4f} s, to the device's end {wall:.4f} s; capture "
+        f"{cap['seconds']:.3f} s, memory reserved "
+        f"{cap['reserved_before'] / 2**20:.0f} -> "
+        f"{cap['reserved_after'] / 2**20:.0f} MiB; host launch calls in one "
+        f"tile: eager {sum(launches['eager'].values())} "
+        f"{json.dumps(launches['eager'])}, graphs "
+        f"{sum(launches['graphs'].values())} "
+        f"{json.dumps(launches['graphs'])}")
+    return dict(capture_s=cap["seconds"],
+                graph_mib=(cap["reserved_after"] - cap["reserved_before"])
+                / 2**20, host_launches=launches)
+
+
+def phase_profile(tile, targs, N, L, P, dev) -> None:
+    """Where one class-0 tile's time goes, all in this one run: (a) the
+    eager tile (run_tile_eager) with a synchronize around every call of
+    its parts; (b) the eager tile and the tile program's graph tile,
+    each unprofiled; (c) the graph tile under torch.profiler (CUDA
+    activity only): device kernels and copies, their summed time, and
+    the device's busy share (union of their intervals over the traced
+    wall)."""
     names = ("_rank_arrays_batch", "poa_dp_batch", "_traceback_matched_batch",
              "_merge", "heaviest_bundle")
     orig = {n: getattr(TF, n) for n in names}
@@ -894,46 +966,54 @@ def phase_profile(tile, targs) -> None:
             return out
         return call
 
-    def wall() -> float:
+    def wall(fn) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tile(*targs)
+        fn()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
+
+    def eager():
+        return TF.run_tile_eager(*targs, N=N, L=L, P=P, device=dev,
+                                 **SCORES)
+
+    def graphs():
+        return tile(*targs)
 
     for n in names:
         setattr(TF, n, timed(n, orig[n]))
     try:
-        inst = wall()
+        inst = wall(eager)
     finally:
         for n, fn in orig.items():
             setattr(TF, n, fn)
     rest = inst - sum(s for s, _ in spent.values())
-    log(f"profile: tile with a sync around each step {inst:.3f} s = "
+    log(f"profile: eager tile with a sync around each step {inst:.3f} s = "
         + ", ".join(f"{n.strip('_')} {s:.3f} s ({c} calls)"
                     for n, (s, c) in spent.items())
         + f", other {rest:.3f} s (curation, packing, state select)")
-    plain_wall = wall()
+    eager_wall, graph_wall = wall(eager), wall(graphs)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced = wall()
+        traced = wall(graphs)
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"profile: tile unprofiled, eager {eager_wall:.4f} s, graphs "
+        f"{graph_wall:.4f} s")
     if not spans:
-        log("profile: the profiler saw no device time (busy share not "
-            "measured)")
+        log("profile: the profiler saw no device time in the graph tile "
+            "(busy share not measured)")
         return
     busy, hi = 0, float("-inf")
     for a, b in spans:
         busy += max(0, b - max(a, hi))
         hi = max(hi, b)
     total = sum(b - a for a, b in spans) / 1e6
-    log(f"profile: tile unprofiled {plain_wall:.3f} s; traced {traced:.3f} "
-        f"s with {len(spans)} device kernels / copies, {total:.4f} s of "
-        f"device time, busy {busy / 1e6:.4f} s = {busy / 1e6 / traced:.3f}"
-        f" of the traced wall ({total / plain_wall:.3f} of the unprofiled "
-        f"wall)")
+    log(f"profile: graph tile traced {traced:.4f} s with {len(spans)} device "
+        f"kernels / copies, {total:.4f} s of device time, busy "
+        f"{busy / 1e6:.4f} s = {busy / 1e6 / traced:.3f} of the traced wall "
+        f"({total / graph_wall:.3f} of the unprofiled wall)")
 
 
 # -- 6. end to end ------------------------------------------------------------
@@ -1366,13 +1446,13 @@ def phase_tools(tmp: str) -> None:
         raise RuntimeError("bench: a FASTA differs from the pinned md5")
     if head.get("metric") != "pipeline_windows_per_sec_per_chip":
         raise RuntimeError(f"bench: no headline ({head})")
-    out, _err = run_tool(["hypo_tpu_torch.tools.profile_device", "2048"],
-                         "profile tool")
+    out, _err = run_tool(["hypo_tpu_torch.tools.profile_device", "2048",
+                          "2"], "profile tool")
     rows = json.loads(out.strip().splitlines()[-1])["rows"]
-    if [r["part"] for r in rows][-1] != "step (graph)" or \
-            not rows[-1].get("equal_to_eager"):
-        raise RuntimeError("profile tool: no graph-replayed step equal to "
-                           "the eager step")
+    if [r["part"] for r in rows][-2:] != ["step (graph)", "tile"] or \
+            not all(r.get("equal_to_eager") for r in rows[-2:]):
+        raise RuntimeError("profile tool: no graph-replayed step and tile "
+                           "equal to the eager step and tile")
 
 
 def parse_args(argv=None):
@@ -1398,7 +1478,8 @@ def main() -> None:
     cons = {t[0]: phase_tile(rng, dev, *t, baseline=baselines.get("consensus"))
             for t in TILES}
     tile_tb = {k: v.pop("tb") for k, v in cons.items()}
-    phase_profile(cons["class0"]["tile"], cons["class0"]["targs"])
+    phase_profile(cons["class0"]["tile"], cons["class0"]["targs"],
+                  N=TILES[0][3], L=TILES[0][2], P=8, dev=dev)
     with tempfile.TemporaryDirectory(prefix="hypo_chip_smoke_") as tmp:
         paths = {"full_4mbp": phase_e2e(tmp)}
         paths["exact_1mbp_hybrid"], paths["full_1mbp_hybrid"] = \
@@ -1409,7 +1490,8 @@ def main() -> None:
         phase_tools(tmp)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
-    cons = {k: {f: x for f, x in v.items() if f not in ("tile", "targs")}
+    cons = {k: {f: x for f, x in v.items()
+                if f not in ("tile", "targs", "graphs")}
             for k, v in cons.items()}
 
     def entry(name, key, replaces, path, shape, by_shape):

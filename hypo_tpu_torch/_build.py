@@ -12,9 +12,15 @@ once.
 same way; a process holds a file lock while it builds, so processes
 started together build each library once.  A failed g++ build returns
 False, and the caller takes its NumPy path (``native.*.available()``).
+
+``count_launch`` is how a kernel wrapper counts the launches of its
+kernel: launches made while the thread captures a CUDA graph are not
+counted then, but gathered by ``recording`` for the graph's replays to
+add (poa.device_full).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import os
@@ -23,6 +29,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
@@ -33,6 +41,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()                      # guards _name_locks
 _name_locks: Dict[str, threading.Lock] = {}    # one build at a time each
 _libs: Dict[str, ctypes.CDLL] = {}
+_capture = threading.local()                  # .launches: see recording()
 # name -> (seconds, ptxas/compiler output) of builds made by this process
 build_log: Dict[str, tuple] = {}
 
@@ -133,3 +142,30 @@ def expect(what: str, device, **tensors) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: ``wrapper.launches`` counts
+    it, unless the current CUDA stream is capturing a graph.  A launch
+    under capture runs only when the graph is replayed; it is added to
+    the dict of the thread's ``recording()``, if one is open, for the
+    replays to count."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+        return
+    rec = getattr(_capture, "launches", None)
+    if rec is not None:
+        rec[wrapper] = rec.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a dict {wrapper: launches} that gathers this thread's
+    kernel launches made under stream capture (``count_launch``) until
+    the block ends: the launches one replay of the captured graph
+    makes."""
+    _capture.launches = rec = {}
+    try:
+        yield rec
+    finally:
+        _capture.launches = None

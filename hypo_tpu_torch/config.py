@@ -105,8 +105,8 @@ class InputFlags:
     window_settings: WindowSettings = dataclasses.field(
         default_factory=WindowSettings)
     # device/bench knobs (no reference equivalent).
-    # use_device_poa: None = auto (device path iff a TPU backend is
-    # present), True/False = force.
+    # use_device_poa: None = auto, which keeps the host engine
+    # (pipeline.polish.Polisher._resolve_device_poa); True/False = force.
     use_device_poa: Optional[bool] = None
     # "full": entire POA on device, one dispatch per bucket (column-POA
     #         tie-breaking, hypo_tpu.poa.device_full)

@@ -7,7 +7,8 @@ why).
 (poa.device_full._consensus_wavefront) only for tensors on the CPU; for
 CUDA tensors it launches the kernel, or raises (also for a shape the
 kernel does not hold).  ``heaviest_bundle.launches`` counts kernel
-launches.
+launches (one captured in a CUDA graph at each replay:
+_build.count_launch).
 """
 from __future__ import annotations
 
@@ -107,7 +108,7 @@ def heaviest_bundle(pred_ranks, pred_w_r, pred_cnt_r, is_end_r,
             p(codes_bwd), p(sups_bwd), p(cons_len), B, N, P,
             ctypes.c_void_p(stream))
     _build.check(lib, rc, "heaviest_bundle launch")
-    heaviest_bundle.launches += 1
+    _build.count_launch(heaviest_bundle)
     return codes_bwd, sups_bwd, cons_len
 
 

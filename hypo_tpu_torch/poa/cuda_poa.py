@@ -3,7 +3,8 @@ kernel of hypo_tpu/poa/pallas_poa.py.
 
 ``poa_dp_batch`` takes the plain version (poa.dp.poa_dp_batch_ref) only
 for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  ``poa_dp_batch.launches`` counts kernel launches.
+raises.  ``poa_dp_batch.launches`` counts kernel launches that ran: one
+captured in a CUDA graph counts at each replay (_build.count_launch).
 """
 from __future__ import annotations
 
@@ -114,7 +115,7 @@ def poa_dp_batch(node_code, pred_rows, pred_cnt, is_end, n_nodes, arm,
             p(arm), p(arm_len), p(mode), p(bp), p(max_row), p(Hg),
             B, N, L, P, m, n, g, per, sent, ctypes.c_void_p(stream))
     _build.check(lib, rc, "poa_dp_batch launch")
-    poa_dp_batch.launches += 1
+    _build.count_launch(poa_dp_batch)
     return bp, max_row
 
 

@@ -9,7 +9,8 @@ poa.cuda_poa) then kernel 3.
 Each wrapper takes its plain version (poa.dp.poa_tb_batch_ref,
 poa.dp.poa_tb_matched_ref) only for tensors on the CPU; for CUDA tensors
 it launches the kernel or raises.  Each counts its kernel launches in
-its ``launches`` attribute.
+its ``launches`` attribute (one captured in a CUDA graph at each
+replay: _build.count_launch).
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ def poa_tb_batch(bp, pred_rows, max_row, arm_len, mode, *, N: int, L: int,
                              p(mode), p(ti), p(tj), p(steps), B, N, L, P,
                              ctypes.c_void_p(stream))
     _build.check(lib, rc, "poa_tb_batch launch")
-    poa_tb_batch.launches += 1
+    _build.count_launch(poa_tb_batch)
     return ti, tj, steps
 
 
@@ -106,7 +107,7 @@ def poa_tb_matched(bp, pred_rows, arm_len, mode, max_row, active, *, N: int,
                                      p(matched), B, N, L, P,
                                      ctypes.c_void_p(stream))
     _build.check(lib, rc, "poa_tb_matched launch")
-    poa_tb_matched.launches += 1
+    _build.count_launch(poa_tb_matched)
     return matched
 
 

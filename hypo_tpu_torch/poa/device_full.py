@@ -22,16 +22,25 @@ node id) instead of JAX's counting; the two are equal.
 
 Everything runs on the device of the tensors it is given; the kernel
 wrappers take their plain versions only for CPU tensors.  The tile
-program splits its B windows into one contiguous block of rows per
-device, as the JAX package's shard_map does (device_full.py:733-779).
+program (``build_tile_program``) splits its B windows into one
+contiguous block of rows per device, as the JAX package's shard_map
+does (device_full.py:733-779), and runs a tile on each block's fixed
+buffers as begin, step x kmax, finish: on a CUDA device as replays of
+three CUDA graphs, where the JAX package runs one jitted program.
+``run_arm_steps`` and ``run_tile_eager``, the same steps as eager
+launches, are its plain reference.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+import contextlib
+import functools
+import time
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import _build
 from . import BIG, NCODES, NEG
 from .cuda_consensus import heaviest_bundle
 from .cuda_poa import poa_dp_batch
@@ -56,16 +65,28 @@ class PoaState(NamedTuple):
     ovf: torch.Tensor         # [B] bool
 
 
+# the value every leaf of a fresh state holds
+_FRESH = PoaState(node_code=0, node_col=0, node_sup=0, pred_nd=-1, pred_w=0,
+                  pred_cnt=0, out_cnt=0, col_pos=0, col_node=-1, n_nodes=0,
+                  n_cols=0, ovf=False)
+
+
+def _reset_state(st: PoaState) -> None:
+    """Make ``st`` a fresh state again, in place."""
+    for leaf, v in zip(st, _FRESH):
+        leaf.fill_(v)
+
+
 def init_state(N: int, P: int, B: int, device) -> PoaState:
-    z = lambda *s: torch.zeros(s, dtype=_I32, device=device)  # noqa: E731
-    return PoaState(
-        node_code=z(B, N), node_col=z(B, N), node_sup=z(B, N),
-        pred_nd=torch.full((B, N, P), -1, dtype=_I32, device=device),
-        pred_w=z(B, N, P), pred_cnt=z(B, N), out_cnt=z(B, N),
-        col_pos=z(B, N),
-        col_node=torch.full((B, N, NCODES), -1, dtype=_I32, device=device),
-        n_nodes=z(B), n_cols=z(B),
-        ovf=torch.zeros(B, dtype=torch.bool, device=device))
+    e = lambda *s: torch.empty(s, dtype=_I32, device=device)  # noqa: E731
+    st = PoaState(
+        node_code=e(B, N), node_col=e(B, N), node_sup=e(B, N),
+        pred_nd=e(B, N, P), pred_w=e(B, N, P), pred_cnt=e(B, N),
+        out_cnt=e(B, N), col_pos=e(B, N), col_node=e(B, N, NCODES),
+        n_nodes=e(B), n_cols=e(B),
+        ovf=torch.empty(B, dtype=torch.bool, device=device))
+    _reset_state(st)
+    return st
 
 
 class RankArrays(NamedTuple):
@@ -408,31 +429,39 @@ def _finish_packed(st: PoaState, th, *, N, P):
     return torch.cat([packed, meta], dim=1).to(torch.uint8).view(torch.int8)
 
 
-def upload(x, device, keep=None) -> torch.Tensor:
-    """``x`` (a numpy array or a tensor) on ``device``.  A numpy array
-    bound for a CUDA device is staged in pinned host memory and copied
-    with non_blocking=True, so that the upload does not wait for the
-    device (a copy from pageable memory ends in a stream synchronize);
-    its pinned buffer is appended to ``keep`` when given, for the caller
-    to hold until it has read what the device computed from it."""
-    device = torch.device(device)
-    if torch.is_tensor(x):
-        return x.to(device)
-    t = torch.from_numpy(np.ascontiguousarray(x))
+def _staged(x, device, keep, dtype=None) -> torch.Tensor:
+    """Numpy array ``x`` (as ``dtype`` when given) as a CPU tensor that a
+    copy to ``device`` takes without waiting for the device: in pinned
+    memory, appended to ``keep`` when given, for a CUDA device (a copy
+    from pageable memory ends in a stream synchronize)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=dtype))
     if device.type != "cuda":
-        return t.to(device)
+        return t
     t = t.pin_memory()
     if keep is not None:
         keep.append(t)
-    return t.to(device, non_blocking=True)
+    return t
+
+
+def upload(x, device, keep=None) -> torch.Tensor:
+    """``x`` (a numpy array or a tensor) on ``device``; a numpy array
+    bound for a CUDA device goes up through pinned memory with
+    non_blocking=True (``_staged``: its pinned buffer is appended to
+    ``keep`` when given, for the caller to hold until it has read what
+    the device computed from it)."""
+    device = torch.device(device)
+    if torch.is_tensor(x):
+        return x.to(device)
+    return _staged(x, device, keep).to(device, non_blocking=True)
 
 
 def run_arm_steps(pool, plen, idx, amode, aw, narms, *, N, L, P, m, n, g,
                   device, kmax=None) -> PoaState:
-    """Merge every window's arms into a fresh graph state on ``device``.
-    pool [A, L] arm codes; plen [A]; idx [B, K] pool row of arm k of
-    window b (-1 none); amode [B, K]; aw [B, K] weights; narms [B]
-    (numpy arrays are uploaded with ``upload``).
+    """Merge every window's arms into a fresh graph state on ``device``,
+    one eager arm step at a time (the plain reference of the tile
+    program's ``step``).  pool [A, L] arm codes; plen [A]; idx [B, K]
+    pool row of arm k of window b (-1 none); amode [B, K]; aw [B, K]
+    weights; narms [B] (numpy arrays are uploaded with ``upload``).
     The arm loop runs ``kmax`` steps, by default the largest of narms
     (read back from the device when narms lies there); a window's result
     does not depend on it as long as it is at least that window's
@@ -456,6 +485,16 @@ def run_arm_steps(pool, plen, idx, amode, aw, narms, *, N, L, P, m, n, g,
     return st
 
 
+def run_tile_eager(pool, plen, idx, amode, aw, narms, th, *, N, L, P, m, n,
+                   g, device) -> torch.Tensor:
+    """One tile on one device as eager launches: ``run_arm_steps`` then
+    ``_finish_packed``.  The plain reference of the tile program, with
+    its arguments and output."""
+    st = run_arm_steps(pool, plen, idx, amode, aw, narms, N=N, L=L, P=P,
+                       m=m, n=n, g=g, device=device)
+    return _finish_packed(st, upload(th, device).to(_I32), N=N, P=P)
+
+
 def as_devices(devices) -> List[torch.device]:
     """A device (or its name) or a sequence of them, as a list."""
     if isinstance(devices, (list, tuple)):
@@ -463,51 +502,208 @@ def as_devices(devices) -> List[torch.device]:
     return [torch.device(devices)]
 
 
-def build_tile_program(*, N: int, L: int, K: int, P: int, m: int, n: int,
-                       g: int, B: int, A: int, devices):
-    """The tile program of one shape class over ``devices`` (a device or
-    a list; hypo_tpu device_full.build_tile_program with ndev =
-    len(devices)): ``tile(pool i8 [A, L], plen i32 [A], idx i32 [B, K],
-    amode i8 [B, K], aw i32 [B, K], narms i32 [B], th i32 [B], keep=None)
-    -> int8 [B, N//2 + 4]`` (see _finish_packed).  Arguments may be
-    numpy arrays or tensors; numpy arrays go up through pinned memory
-    without a host sync (``upload``), their pinned buffers appended to
-    the list ``keep`` when one is given.  The output is not read back:
-    a call returns once its work is queued on the devices.
+# a tile's inputs in the order the program takes them, with the dtype
+# of each one's fixed buffer
+_TILE_INPUTS = (("pool", np.int8), ("plen", np.int32), ("idx", np.int32),
+                ("amode", np.int8), ("aw", np.int32), ("narms", np.int32),
+                ("th", np.int32))
 
-    The B rows split into len(devices) contiguous blocks of B // ndev
-    (B must divide by ndev, as in the JAX package); the arm pool goes to
-    every device.  Each block runs its arm loop to its own largest arm
-    count, taken from the host's narms, and its consensus on its own
-    device.  With several devices the blocks' outputs are concatenated
-    in row order on the first device (device-to-device copies, which do
-    not wait on the host)."""
-    devices = as_devices(devices)
-    ndev = len(devices)
-    if not ndev or B % ndev:
-        raise ValueError(f"build_tile_program: B={B} rows do not split "
-                         f"into {ndev} equal device blocks")
-    blk = B // ndev
 
-    def tile(pool, plen, idx, amode, aw, narms, th, keep=None):
+def _on(dev: torch.device):
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _replay(graph, launches) -> None:
+    """Replay ``graph``; each kernel wrapper counts the launches the
+    graph recorded at capture."""
+    graph.replay()
+    for wrapper, count in launches.items():
+        wrapper.launches += count
+
+
+class _Block:
+    """One device block of a tile program: fixed buffers for its rows of
+    the tile's inputs (the whole arm pool), the graph state, the arm
+    counter ``k`` (a device int32) and the packed output, and the three
+    parts of a tile that work on them in place: ``begin``, ``step`` and
+    ``finish``.  On a CUDA device each part is captured once in a CUDA
+    graph, at the block's first run, and replayed; elsewhere the parts
+    are called as they are."""
+
+    def __init__(self, dev: torch.device, rows: int, *, N, L, K, P, m, n, g,
+                 A):
+        self.dev = dev
+        self.kw = dict(N=N, L=L, P=P, m=m, n=n, g=g)
+        shapes = dict(pool=(A, L), plen=(A,), idx=(rows, K),
+                      amode=(rows, K), aw=(rows, K), narms=(rows,),
+                      th=(rows,))
+        self.inputs = [torch.from_numpy(np.zeros(shapes[name], dt)).to(dev)
+                       for name, dt in _TILE_INPUTS]
+        self.st = init_state(N, P, rows, dev)
+        self.k = torch.zeros(1, dtype=_I32, device=dev)
+        self.out = torch.zeros((rows, N // 2 + 4), dtype=torch.int8,
+                               device=dev)
+        self._parts = None
+        # CUDA: the capture's seconds, and torch.cuda.memory_reserved
+        # before it (the cache emptied) and after it: the growth is the
+        # graphs' private memory pool
+        self.capture_stats: Optional[dict] = None
+
+    def load(self, arrays, keep) -> None:
+        """Copy a tile's arrays (this block's rows) into the input
+        buffers, on the current stream, without waiting."""
+        for buf, x, (_name, dt) in zip(self.inputs, arrays, _TILE_INPUTS):
+            src = (x.to(buf.dtype) if torch.is_tensor(x)
+                   else _staged(x, self.dev, keep, dt))
+            buf.copy_(src, non_blocking=True)
+
+    def begin(self) -> None:
+        """A fresh graph state, and k = 0."""
+        _reset_state(self.st)
+        self.k.zero_()
+
+    def step(self) -> None:
+        """One arm step (run_arm_steps' loop body) with the arm index k
+        read on the device: arm k of every window merged into its graph,
+        then k += 1."""
+        pool, plen, idx, amode, aw, narms, _th = self.inputs
+        col = self.k.long().expand(idx.shape[0], 1)
+        rows = idx.gather(1, col)[:, 0]
+        active = (self.k < narms) & (rows >= 0)
+        rr = rows.clamp(min=0).long()
+        al = torch.where(active, plen[rr], 0)
+        new = _arm_step_batch(self.st, pool[rr].to(_I32), al,
+                              amode.gather(1, col)[:, 0].to(_I32), active,
+                              aw.gather(1, col)[:, 0], **self.kw)
+        for leaf, v in zip(self.st, new):
+            leaf.copy_(v)
+        self.k += 1
+
+    def finish(self) -> None:
+        """Consensus, curation and packing of every window into out."""
+        self.out.copy_(_finish_packed(self.st, self.inputs[6],
+                                      N=self.kw["N"], P=self.kw["P"]))
+
+    def parts(self):
+        """(begin, step, finish) as this block runs them: on CUDA, the
+        replays of each part's graph (captured at the first call)."""
+        if self._parts is None:
+            self._parts = (self._capture() if self.dev.type == "cuda"
+                           else (self.begin, self.step, self.finish))
+        return self._parts
+
+    def _capture(self):
+        """Each part captured in a CUDA graph, all three in one private
+        memory pool (they never run at once: one stream replays them in
+        turn), after one eager call of each on the capture stream, so
+        that every first-call setting is made outside the capture.  The
+        capture is thread-local: another thread may use the card
+        meanwhile."""
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()      # as every capture below does
+        before = torch.cuda.memory_reserved(self.dev)
+        side = torch.cuda.Stream(self.dev)
+        cur = torch.cuda.current_stream(self.dev)
+        side.wait_stream(cur)
+        fns = (self.begin, self.step, self.finish)
+        with torch.cuda.stream(side):
+            for fn in fns:
+                fn()
+        cur.wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        parts = []
+        for fn in fns:
+            graph = torch.cuda.CUDAGraph()
+            with _build.recording() as launches, torch.cuda.graph(
+                    graph, pool=pool, stream=side,
+                    capture_error_mode="thread_local"):
+                fn()
+            parts.append(functools.partial(_replay, graph, launches))
+        self.capture_stats = dict(
+            seconds=time.perf_counter() - t0, reserved_before=before,
+            reserved_after=torch.cuda.memory_reserved(self.dev))
+        return tuple(parts)
+
+    def run(self, kmax: int) -> None:
+        """The tile whose inputs were loaded: begin, step x kmax,
+        finish."""
+        begin, step, finish = self.parts()
+        begin()
+        for _ in range(kmax):
+            step()
+        finish()
+
+
+class TileProgram:
+    """The tile program of one shape class over a list of devices (see
+    build_tile_program).  Its device blocks are made at the first
+    call."""
+
+    def __init__(self, *, N, L, K, P, m, n, g, B, A, devices):
+        self.devices = as_devices(devices)
+        ndev = len(self.devices)
+        if not ndev or B % ndev:
+            raise ValueError(f"build_tile_program: B={B} rows do not split "
+                             f"into {ndev} equal device blocks")
+        self.B = B
+        self.blk = B // ndev
+        self.kw = dict(N=N, L=L, K=K, P=P, m=m, n=n, g=g, A=A)
+        self.blocks: Optional[List[_Block]] = None
+
+    def __call__(self, pool, plen, idx, amode, aw, narms, th, keep=None):
+        A, L, K, B = self.kw["A"], self.kw["L"], self.kw["K"], self.B
         if tuple(pool.shape) != (A, L) or tuple(idx.shape) != (B, K):
             raise ValueError(f"tile: pool {tuple(pool.shape)} / idx "
                              f"{tuple(idx.shape)}, expected {(A, L)} / "
                              f"{(B, K)}")
+        if self.blocks is None:
+            self.blocks = [_Block(dev, self.blk, **self.kw)
+                           for dev in self.devices]
         narms_h = (narms.cpu().numpy() if torch.is_tensor(narms)
                    else np.asarray(narms))
+        blk = self.blk
         outs = []
-        for d, dev in enumerate(devices):
+        for d, block in enumerate(self.blocks):
             r = slice(d * blk, (d + 1) * blk)
             kmax = int(narms_h[r].max()) if blk else 0
-            st = run_arm_steps(*(upload(x, dev, keep) for x in (
-                pool, plen, idx[r], amode[r], aw[r], narms[r])),
-                N=N, L=L, P=P, m=m, n=n, g=g, device=dev, kmax=kmax)
-            th_d = upload(th[r], dev, keep).to(_I32)
-            outs.append(_finish_packed(st, th_d, N=N, P=P))
-        if ndev == 1:
+            with _on(block.dev):
+                block.load((pool, plen, idx[r], amode[r], aw[r], narms[r],
+                            th[r]), keep)
+                block.run(kmax)
+                # the next tile's run overwrites block.out
+                outs.append(block.out.clone())
+        if len(outs) == 1:
             return outs[0]
-        return torch.cat([o.to(devices[0], non_blocking=True)
+        return torch.cat([o.to(self.devices[0], non_blocking=True)
                           for o in outs])
 
-    return tile
+
+def build_tile_program(*, N: int, L: int, K: int, P: int, m: int, n: int,
+                       g: int, B: int, A: int, devices) -> TileProgram:
+    """The tile program of one shape class over ``devices`` (a device or
+    a list; hypo_tpu device_full.build_tile_program with ndev =
+    len(devices)): ``tile(pool i8 [A, L], plen i32 [A], idx i32 [B, K],
+    amode i8 [B, K], aw i32 [B, K], narms i32 [B], th i32 [B], keep=None)
+    -> int8 [B, N//2 + 4]`` (see _finish_packed), equal to
+    ``run_tile_eager`` on the same tile.  Arguments may be numpy arrays
+    or tensors; numpy arrays go up through pinned memory without a host
+    sync, their pinned buffers appended to the list ``keep`` when one is
+    given.  The output is not read back: a call returns once its work is
+    queued on the devices.
+
+    The B rows split into len(devices) contiguous blocks of B // ndev
+    (B must divide by ndev, as in the JAX package); the arm pool goes to
+    every device.  Each block holds fixed buffers for its inputs, graph
+    state and output, and runs a tile as begin, step x kmax and finish
+    on them (``_Block``), kmax being the block's largest arm count from
+    the host's narms: on a CUDA device as replays of the three CUDA
+    graphs it captures at its first tile, the counterpart of the JAX
+    package's one jitted program a tile (fori_loop over the arm steps,
+    then the finish).  A block's work stays on its device's current
+    stream, so tiles queued back to back reuse the buffers in order;
+    each tile's output is a copy.  With several devices the blocks'
+    outputs are concatenated in row order on the first device
+    (device-to-device copies, which do not wait on the host)."""
+    return TileProgram(N=N, L=L, K=K, P=P, m=m, n=n, g=g, B=B, A=A,
+                       devices=devices)

@@ -15,13 +15,16 @@ before.  Long windows that reach it run their curated second round as a
 new job.
 
 Each tile is one call of the tile program (poa.device_full.
-build_tile_program) over this runner's devices: with ndev of them the
-tile's B rows split into ndev blocks of B // ndev, one a device, and the
-runner stripes a tile's windows across the blocks (window t of a tile in
-row (t % ndev) * (B // ndev) + t // ndev, as the JAX package does), so
-each block gets a like mix of arm counts.  ``stats["rows_per_device"]``
-counts the windows each block got, on both paths (a list of ints; the
-JAX package counts them in run_polish_batch only, with ndev > 1).
+build_tile_program; one a class and scores, kept by the runner, whose
+CUDA graphs are captured at its first tile) over this runner's devices:
+on a CUDA device a tile is a few input copies and graph replays.  With
+ndev devices the tile's B rows split into ndev blocks of B // ndev, one
+a device, and the runner stripes a tile's windows across the blocks
+(window t of a tile in row (t % ndev) * (B // ndev) + t // ndev, as the
+JAX package does), so each block gets a like mix of arm counts.
+``stats["rows_per_device"]`` counts the windows each block got, on both
+paths (a list of ints; the JAX package counts them in run_polish_batch
+only, with ndev > 1).
 ``HYPO_POA_NDEV`` caps ndev at its value, which must not exceed the
 devices the runner is given.  LONG windows (wtype != 0),
 windows that fit no shape class and windows that overflow a class cap
@@ -41,8 +44,9 @@ loop's bound from the host's narms), then the runner drains the devices
 ``HYPO_POA_DEBUG`` set, both print the JAX runner's stage lines
 (``[poa] ...``) to stdout.  ``warm()`` builds the three kernels and runs
 the tile program once on a zero tile in a background thread, as the JAX
-package does, so that both overlap the host stages; the first dispatch
-waits for the thread and raises the error it met, if any.
+package does, so that both (and the capture of the program's graphs)
+overlap the host stages; the first dispatch waits for the thread and
+raises the error it met, if any.
 """
 from __future__ import annotations
 
@@ -60,7 +64,7 @@ from ..native import host_api
 from . import GLOBAL_ALPHABET, GLOBAL_CODE, NW
 from .batch import DeviceConsensusRunner, _Job
 from .cuda_poa import check_scores
-from .device_full import as_devices, build_tile_program
+from .device_full import TileProgram, as_devices, build_tile_program
 from .engine import CURATE_THRESH, ConsensusEngine
 from .host_runner import build_batch_jobs, materialize_arms_bulk
 
@@ -143,6 +147,9 @@ class FullDeviceRunner(DeviceConsensusRunner):
         self.ndev = len(devices)
         self._warm_thread: Optional[threading.Thread] = None
         self._warm_error: Optional[Exception] = None
+        # (class, scores) -> its tile program, whose CUDA graphs and
+        # buffers live as long as this runner
+        self._programs: Dict[tuple, TileProgram] = {}
         for ci in range(len(CLASSES)):      # raises unless B splits
             self._program(ci, self.short_scores)
         self.threads = threads
@@ -159,12 +166,14 @@ class FullDeviceRunner(DeviceConsensusRunner):
     def warm(self, classes=(0,)) -> threading.Thread:
         """In a background thread, build (or load) the kernels on a CUDA
         device, then run the tile program of each class in ``classes``
-        once on a zero tile (hypo_tpu full_runner.warm): every window
-        empty but the first, which has one empty arm slot, so that the
-        arm loop runs one step and all three kernels launch.  The first
-        dispatch joins the thread and raises the error it met, if any;
-        unlike the JAX package's, a failed warm-up is never swallowed.
-        Returns the thread."""
+        once on a zero tile (hypo_tpu full_runner.warm, where the first
+        call compiles the program): every window empty but the first,
+        which has one empty arm slot, so that the arm loop runs one step
+        and all three kernels launch.  On a CUDA device that first tile
+        captures the program's graphs, so they are made here, behind the
+        host stages.  The first dispatch joins the thread and raises the
+        error it met, if any; unlike the JAX package's, a failed warm-up
+        is never swallowed.  Returns the thread."""
         def run():
             try:
                 super(FullDeviceRunner, self).warm()
@@ -236,11 +245,18 @@ class FullDeviceRunner(DeviceConsensusRunner):
             A = 2 * B * K
         return L, N, K, B, A
 
-    def _program(self, ci: int, scores):
-        L, N, K, B, A = self._class_shape(ci)
-        m, n, g = scores
-        return build_tile_program(N=N, L=L, K=K, P=P_FULL, m=m, n=n, g=g,
-                                  B=B, A=A, devices=self.devices)
+    def _program(self, ci: int, scores) -> TileProgram:
+        """The tile program of class ``ci`` at ``scores``, built at its
+        first use (its graphs are captured at its first tile)."""
+        key = (ci, tuple(scores))
+        prog = self._programs.get(key)
+        if prog is None:
+            L, N, K, B, A = self._class_shape(ci)
+            m, n, g = scores
+            prog = self._programs[key] = build_tile_program(
+                N=N, L=L, K=K, P=P_FULL, m=m, n=n, g=g, B=B, A=A,
+                devices=self.devices)
+        return prog
 
     def _count_tile(self, ci: int, rows: np.ndarray) -> None:
         """Count a tile of len(rows) windows in tile rows ``rows``."""

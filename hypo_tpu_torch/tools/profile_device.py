@@ -17,11 +17,17 @@ to B windows.  Each part of an arm step is timed per call:
   cons   device_full._consensus_batch     (rank, kernel 2, reversal)
   step   device_full._arm_step_batch      (rank + dp + tb + merge + select)
 
-and one more row, ``step (graph)``: one ``_arm_step_batch`` captured in a
-``torch.cuda.CUDAGraph`` and replayed; its output is compared leaf by
-leaf with the eager step's, and the tool fails if they differ.  The
-graph is a measurement here only (the runner launches eagerly); the
-kernels' launch counters tick at capture, not at replay.
+then two more rows.  ``step (graph)`` (CUDA only): the tile program's
+own ``step`` graph (poa.device_full.build_tile_program at B, the graph
+the runner replays), its state set to the eager step's and its counter
+to 0 before each replay; its output is compared leaf by leaf with the
+eager step's, and the tool fails if they differ.  ``tile``: one tile of
+the 64 windows' 6 arms tiled to B, eager (device_full.run_tile_eager)
+against the tile program (graph replays on CUDA, its parts called
+directly on the CPU); the tool fails unless both give the same bytes.
+Its row gives ms, device ms, device kernels and copies, and the host's
+launch calls (kernels, graphs, copies and fills, by name, as the
+profiler records them) for each.
 
 Each row gives the ms per call between CUDA events (``reps`` samples of
 10 back-to-back calls after a warm-up, median; it holds the host's
@@ -29,12 +35,14 @@ issue work where that is longer than the device's), the device ms per
 call from torch.profiler (the summed durations of the device kernels
 and copies), and the device kernels and copies per call.  The last line
 of stdout is one JSON object with every row.  ``--device cpu`` (tests)
-times on the host clock and reports no device time and no graph row.
+times on the host clock and reports no device time, no host launches
+and no ``step (graph)`` row.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -48,6 +56,8 @@ L, N, K, P = 126, 256, 16, 8
 SCORES = dict(m=5, n=-4, g=-8)
 NWIN, N_ARMS = 64, 5
 PARTS = ("rank", "dp", "tb", "merge", "cons", "step")
+# the host's runtime and driver calls that launch device work
+LAUNCH_RE = re.compile(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)")
 
 
 def make_arms(nwin: int, n_arms: int, seed: int = 0):
@@ -135,19 +145,87 @@ def parts(st, arm, alen, mode, active, w) -> Dict[str, callable]:
     }
 
 
-def graph_step(step, dev):
-    """One call of ``step`` captured in a CUDA graph, after an eager
-    call on a side stream (so that every first-call setting is made
-    outside the capture); returns (graph, its static output)."""
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
+def tile_arrays(B: int):
+    """A tile of B windows: window b holds the NWIN windows' N_ARMS + 1
+    arms of window b % NWIN (make_arms), weight 1, mode NW."""
+    arms, alens = make_arms(NWIN, N_ARMS)
+    na = N_ARMS + 1
+    idx = np.full((B, K), -1, np.int32)
+    idx[:, :na] = (np.arange(na)[None, :] * NWIN
+                   + (np.arange(B) % NWIN)[:, None])
+    return (arms.reshape(na * NWIN, L).astype(np.int8), alens.reshape(-1),
+            idx, np.zeros((B, K), np.int8), np.ones((B, K), np.int32),
+            np.full(B, na, np.int32), np.zeros(B, np.int32))
+
+
+def program(B: int, A: int, dev):
+    return TF.build_tile_program(N=N, L=L, K=K, P=P, B=B, A=A, devices=dev,
+                                 **SCORES)
+
+
+def graph_step(st, arm, alen, dev):
+    """The tile program's step graph set to replay the class-0 step on
+    state ``st``: arm b of ``arm`` into window b, weight 1, mode NW.
+    Returns (the program's block, whose state the replays update, and a
+    call that sets its arm counter to 0 and replays the step graph)."""
+    B = arm.shape[0]
+    prog = program(B, B, dev)
+    # every arm slot of window b reads pool row b
+    idx = np.tile(np.arange(B, dtype=np.int32)[:, None], (1, K))
+    prog(arm.to(torch.int8), alen, idx, np.zeros((B, K), np.int8),
+         np.ones((B, K), np.int32), np.full(B, K, np.int32),
+         np.zeros(B, np.int32))          # loads the inputs, captures
+    block = prog.blocks[0]
+    for leaf, v in zip(block.st, st):
+        leaf.copy_(v)
+    step = block.parts()[1]
+
+    def replay():
+        block.k.zero_()
         step()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = step()
-    return graph, out
+    return block, replay
+
+
+def host_launches(fn, dev) -> Optional[Dict[str, int]]:
+    """The host's launch calls in one call of fn(), by name, from a
+    torch.profiler trace (CPU and CUDA activity); None off the card."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    out: Dict[str, int] = {}
+    for e in prof.events():
+        if LAUNCH_RE.match(e.name):
+            name = re.sub(r"_v\d+$", "", e.name)   # CUPTI's API version
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def tile_row(B: int, reps: int, dev, inner: int) -> dict:
+    """The ``tile`` row: an eager tile against the tile program's, which
+    must give the same bytes."""
+    arrays = tile_arrays(B)
+    prog = program(B, len(arrays[0]), dev)
+    calls = {"eager": lambda: TF.run_tile_eager(*arrays, N=N, L=L, P=P,
+                                                device=dev, **SCORES),
+             "program": lambda: prog(*arrays)}
+    outs = {k: fn() for k, fn in calls.items()}
+    sync(dev)
+    if not torch.equal(outs["eager"].cpu(), outs["program"].cpu()):
+        raise RuntimeError("the tile program's tile differs from the eager "
+                           "tile")
+    r = {"part": "tile", "steps": N_ARMS + 1, "equal_to_eager": True}
+    for name, fn in calls.items():
+        dev_ms, per = profiled_ms(fn, dev)
+        r[name] = {"ms": event_ms(fn, dev, reps=reps, inner=inner),
+                   "device_ms": dev_ms, "device_activities_per_call": per,
+                   "host_launches": host_launches(fn, dev)}
+    return r
 
 
 def row(name: str, fn, dev, reps: int, inner: int = 10) -> dict:
@@ -174,27 +252,39 @@ def profile(B: int, reps: int, dev, inner: int = 10) -> List[dict]:
         rows.append(row(name, calls[name], dev, reps, inner))
         log_row(rows[-1])
     if dev.type == "cuda":
+        st = inputs[0]
         eager = calls["step"]()
-        graph, out = graph_step(calls["step"], dev)
-        graph.replay()
+        block, replay = graph_step(st, inputs[1], inputs[2], dev)
+        replay()
         sync(dev)
-        diff = [f for f, a, b in zip(TF.PoaState._fields, eager, out)
+        diff = [f for f, a, b in zip(TF.PoaState._fields, eager, block.st)
                 if not torch.equal(a, b)]
         print(f"[prof] step (graph) replay vs eager step: "
               + (f"leaves differ: {diff}" if diff else
-                 f"all {len(out)} leaves equal"), flush=True)
+                 f"all {len(eager)} leaves equal"), flush=True)
         if diff:
-            raise RuntimeError(f"the CUDA graph's step differs from the "
-                               f"eager step in {diff}")
+            raise RuntimeError(f"the tile program's step graph differs from "
+                               f"the eager step in {diff}")
         try:
-            r = row("step (graph)", graph.replay, dev, reps, inner)
+            r = row("step (graph)", replay, dev, reps, inner)
         except RuntimeError:   # the profiler saw no replayed kernel
             r = {"part": "step (graph)",
-                 "ms": event_ms(graph.replay, dev, reps=reps, inner=inner),
+                 "ms": event_ms(replay, dev, reps=reps, inner=inner),
                  "device_ms": None, "device_activities_per_call": None}
         r["equal_to_eager"] = True
         rows.append(r)
         log_row(r)
+    r = tile_row(B, reps, dev, inner)
+    rows.append(r)
+    for name in ("eager", "program"):
+        t = r[name]
+        hl = t["host_launches"]
+        print(f"[prof] tile {name:7s}: {t['ms']:9.4f} ms/call, device "
+              f"{fmt(t['device_ms'])} ms/call, "
+              f"{fmt(t['device_activities_per_call'], 1)} device kernels "
+              f"and copies/call, host launch calls "
+              f"{'not measured' if hl is None else json.dumps(hl)} "
+              f"({r['steps']} arm steps; bytes equal)", flush=True)
     return rows
 
 

@@ -18,7 +18,8 @@ marker:
   the host engine's; without a card, ``--device cuda`` exits non-zero
   with no headline;
 - ``python -m hypo_tpu_torch.tools.profile_device`` at B = 64: six
-  eager rows; its state and step equal the JAX tool's state and JAX's
+  eager rows and the tile row (eager and tile program, equal bytes);
+  its state and step equal the JAX tool's state and JAX's
   ``_arm_step_batch``;
 - ``python -m hypo_tpu_torch.tools.long_window_stats`` prints the JAX
   tool's statistics on a 60 kbp hybrid simulation.
@@ -343,14 +344,21 @@ def test_bench_without_a_card_exits_with_no_headline():
 
 
 def test_profile_tool_on_the_cpu(capsys):
-    """The tool's rows at B = 64, one sample of one call each."""
+    """The tool's rows at B = 64, one sample of one call each: six eager
+    parts, then the tile, eager and through the tile program, with
+    equal bytes."""
     rows = profile_device.profile(64, 1, CPU, inner=1)
     out = capsys.readouterr().out.strip().splitlines()
     assert [r["part"] for r in rows] == ["rank", "dp", "tb", "merge",
-                                         "cons", "step"]
-    assert all(r["ms"] > 0 and r["device_ms"] is None for r in rows)
+                                         "cons", "step", "tile"]
+    assert all(r["ms"] > 0 and r["device_ms"] is None for r in rows[:-1])
+    tile = rows[-1]
+    assert tile["equal_to_eager"] is True and tile["steps"] == 6
+    for name in ("eager", "program"):
+        assert tile[name]["ms"] > 0 and tile[name]["device_ms"] is None
+        assert tile[name]["host_launches"] is None
     assert [line.split(":")[0].split()[-1] for line in out] == [
-        "rank", "dp", "tb", "merge", "cons", "step"]
+        "rank", "dp", "tb", "merge", "cons", "step", "eager", "program"]
 
 
 def test_profile_tool_state_and_step_equal_the_jax_tool():
@@ -413,9 +421,15 @@ def cuda_device():
 def test_profile_graph_replay_equals_the_eager_step(cuda_device):
     rows = profile_device.profile(256, 1, cuda_device)
     assert [r["part"] for r in rows] == ["rank", "dp", "tb", "merge",
-                                         "cons", "step", "step (graph)"]
+                                         "cons", "step", "step (graph)",
+                                         "tile"]
+    assert rows[-2]["equal_to_eager"] is True
     assert rows[-1]["equal_to_eager"] is True
-    assert all(r["device_ms"] is not None for r in rows[:-1])
+    assert all(r["device_ms"] is not None for r in rows[:-2])
+    # the tile program's tile: a few graph launches, not one a kernel
+    launches = rows[-1]["program"]["host_launches"]
+    graphs = sum(n for k, n in launches.items() if "GraphLaunch" in k)
+    assert graphs == 1 + rows[-1]["steps"] + 1      # begin, steps, finish
 
 
 @pytest.mark.cuda

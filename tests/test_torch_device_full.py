@@ -2,6 +2,12 @@
 JAX package's (hypo_tpu.poa.device_full, XLA path) and against the NumPy
 spec (hypo_tpu.poa.colpoa_ref.ColPoa), on CPU tensors.  Inputs come from
 numpy seeds; every compared value is an integer, so the tolerance is 0.
+
+The tile program runs a tile as begin, step x kmax and finish on fixed
+buffers, the arm index a device counter; on the CPU it calls those parts
+as they are (on a CUDA device it replays their graphs), so the CPU cases
+here run the same code on the same buffers, tile after tile.  Card-only
+cases carry the ``cuda`` marker.
 """
 import functools
 
@@ -12,7 +18,10 @@ import torch
 
 from hypo_tpu.poa import device_full as DF
 from hypo_tpu.poa.colpoa_ref import ColPoa
+from hypo_tpu_torch import _build
+from hypo_tpu_torch.poa import cuda_consensus, cuda_poa, cuda_tb
 from hypo_tpu_torch.poa import device_full as TF
+from hypo_tpu_torch.poa import full_runner as tfull
 from hypo_tpu_torch.state import state_from_numpy, state_to_numpy
 from test_device_full import _random_jobs
 
@@ -134,3 +143,153 @@ def test_consensus_matches_colpoa_spec():
         assert cs[b, :cl[b]].tolist() == sup
         checked += 1
     assert checked >= B // 2
+
+
+# -- the replayable program over consecutive tiles ----------------------------
+
+def class_tile(ci, seed, kgen, n_wild=0, max_arms=None):
+    """A tile at shape class ``ci``'s caps and the CPU tile size (B =
+    _CPU_TILE_B, A = 2 B K, as FullDeviceRunner._class_shape): random
+    windows of 3..kgen-1 arms (tile_inputs; at most ``max_arms``), the
+    first n_wild of them overflowing."""
+    L, N, K, _B, _A = tfull.CLASSES[ci]
+    B = tfull._CPU_TILE_B
+    A = 2 * B * K
+    (pool, plen, idx, amode, aw, narms, th), _ = tile_inputs(
+        seed, B, kgen, L, (100, 300)[ci], 0.12, n_wild)
+    if max_arms is not None:
+        narms = np.minimum(narms, max_arms)
+        idx[np.arange(kgen)[None, :] >= narms[:, None]] = -1
+    wide = lambda x, fill: np.pad(  # noqa: E731
+        x, ((0, 0), (0, K - kgen)), constant_values=fill)
+    pool_a = np.zeros((A, L), np.int8)
+    pool_a[:len(pool)] = pool
+    plen_a = np.zeros(A, np.int32)
+    plen_a[:len(plen)] = plen
+    return (pool_a, plen_a, wide(idx, -1), wide(amode, 0), wide(aw, 0),
+            narms, th)
+
+
+def class_kw(ci):
+    L, N, K, _B, _A = tfull.CLASSES[ci]
+    B = tfull._CPU_TILE_B
+    return dict(N=N, L=L, K=K, P=tfull.P_FULL, B=B, A=2 * B * K, **SC)
+
+
+def consecutive_tiles(ci):
+    """Three tiles, in the order they go through one program: the first
+    with an overflowing window (4 unrelated full-length arms), the
+    second with fewer arms than the first, the third with more again
+    (at most 3 arms a window in class 1, whose plain DP is slow on the
+    CPU)."""
+    kgen = (5, 4)[ci]
+    return (class_tile(ci, 21, 5, n_wild=1),
+            class_tile(ci, 22, kgen, max_arms=2),
+            class_tile(ci, 23, kgen))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tile_bytes(ci):
+    """hypo_tpu's tile program (XLA, one device) on consecutive_tiles."""
+    prog = DF.build_tile_program(**class_kw(ci), dp_impl="xla", ndev=1)
+    return [np.asarray(prog(*t)) for t in consecutive_tiles(ci)]
+
+
+@pytest.mark.parametrize("ndev", [1, 2])
+@pytest.mark.parametrize("ci", [0, 1])
+def test_replayable_program_matches_jax_over_consecutive_tiles(ci, ndev):
+    """One program instance takes three tiles back to back (all queued
+    before the first output is read) on its fixed buffers, each block
+    looping to its own largest arm count; every tile's bytes equal the
+    JAX tile program's.  JAX runs on one device: the split is the
+    port's, and its bytes must not depend on it."""
+    kw = class_kw(ci)
+    N = kw["N"]
+    tiles = consecutive_tiles(ci)
+    want = jax_tile_bytes(ci)
+    assert want[0][0, N // 2 + 2] == 1            # overflowed
+    assert tiles[1][5].max() < tiles[0][5].max()  # fewer arms than before
+    prog = TF.build_tile_program(**kw, devices=[CPU] * ndev)
+    outs = [prog(*t) for t in tiles]
+    assert len(prog.blocks) == ndev
+    for i, (got, w) in enumerate(zip(outs, want)):
+        assert got.dtype == torch.int8 and tuple(got.shape) == w.shape
+        assert np.array_equal(got.numpy(), w), f"tile {i}"
+
+
+def test_a_step_that_always_reads_arm_0_fails_the_comparison(monkeypatch):
+    """The arm index is the device counter k: a step that leaves it at 0
+    merges every window's first arm again and again, and the bytes no
+    longer equal JAX's."""
+    step = TF._Block.step
+
+    def stuck(self):
+        step(self)
+        self.k.zero_()
+
+    monkeypatch.setattr(TF._Block, "step", stuck)
+    tile = consecutive_tiles(0)[0]
+    got = TF.build_tile_program(**class_kw(0), devices=CPU)(*tile)
+    assert not np.array_equal(got.numpy(), jax_tile_bytes(0)[0])
+
+
+def test_launches_under_capture_count_at_each_replay(monkeypatch):
+    """A kernel launch made while the stream captures a graph is not
+    counted then; the capture's recording holds it, and each replay of
+    the graph adds it (device_full._replay)."""
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with _build.recording() as recorded:
+        _build.count_launch(wrapper)
+        _build.count_launch(wrapper)
+    _build.count_launch(wrapper)        # capturing, no recording open
+    assert wrapper.launches == 0 and recorded == {wrapper: 2}
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    _build.count_launch(wrapper)
+    replays = []
+
+    class Graph:
+        def replay(self):
+            replays.append(1)
+
+    for _ in range(3):
+        TF._replay(Graph(), recorded)
+    assert len(replays) == 3 and wrapper.launches == 1 + 3 * 2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci", [0, 1])
+def test_graph_tiles_equal_eager_tiles_and_count_replays(cuda_device, ci):
+    """On the card: three tiles queued back to back through one program
+    equal the eager tiles (run_tile_eager); the capture runs each part
+    eagerly once (one launch of each kernel) and adds no launch itself;
+    every tile adds kmax launches of kernels 1 and 3 and one of kernel
+    2."""
+    kw = class_kw(ci)
+    counters = (cuda_poa.poa_dp_batch, cuda_tb.poa_tb_matched,
+                cuda_consensus.heaviest_bundle)
+    for c in counters:
+        c.launches = 0
+    prog = TF.build_tile_program(**kw, devices=cuda_device)
+    tiles = consecutive_tiles(ci)
+    outs = [prog(*t) for t in tiles]
+    torch.cuda.synchronize()
+    steps = sum(int(t[5].max()) for t in tiles)
+    assert [c.launches for c in counters] == [1 + steps, 1 + steps, 1 + 3]
+    assert prog.blocks[0].capture_stats["seconds"] > 0
+    eager_kw = {k: kw[k] for k in ("N", "L", "P", "m", "n", "g")}
+    for i, (t, out) in enumerate(zip(tiles, outs)):
+        want = TF.run_tile_eager(*t, **eager_kw, device=cuda_device)
+        assert torch.equal(out, want), f"tile {i}"
