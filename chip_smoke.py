@@ -8,7 +8,7 @@ Phases, each raising on failure (so the script exits non-zero and never
 prints its last line):
   1. environment: torch / CUDA / nvcc versions, the card's name and
      power limit; fails without CUDA;
-  2. build: the three CUDA kernels with nvcc and the port's three native
+  2. build: the five CUDA kernels with nvcc and the port's three native
      host libraries with g++, one compiler each, all started together
      (timed; each kernel's registers, spills and shared memory as
      ``-Xptxas -v`` prints them);
@@ -38,11 +38,19 @@ prints its last line):
      the bp of that tile's arm steps (the first two, the middle one and
      the last; rows above n_nodes hold what kernel 1 left there), with
      matched rebuilt from exact mode's emitter on the same inputs:
-     exact equality, median times at the third step;
+     exact equality, median times at the third step; (4c) the rank
+     kernel (kernel 4) and the merge kernel (kernel 5) vs their plain
+     versions on the state before every arm step of that tile (recorded
+     as the eager steps ran) and on its final state: kernel 4 with all
+     its leaves and with the arm step's and the finish's subsets, kernel
+     5 on a copy of each state (it merges in place), every leaf equal;
+     device and call times at the third step (kernel 5's device time
+     from its kernel alone: its state is restored before each call),
+     each against its bound on that step's own bytes;
   5. each tile through the tile program (its CUDA graphs captured at
      that first tile) vs the eager arm steps and finish, and vs the
      NumPy spec hypo_tpu_torch.poa.colpoa_ref.ColPoa on every window
-     without overflow (at least 256 / 128 of them); the three kernels'
+     without overflow (at least 256 / 128 of them); the five kernels'
      launch counters > 0; how many rows the DP kernel keeps in its
      int16 device-memory copy (rows read from beyond its ring) over the
      tile's arm steps; then (5b) three different tiles of the class
@@ -93,8 +101,9 @@ prints its last line):
      program's graphs, which must give the same bytes).
 Launch counters count kernels that ran: a launch captured in a graph
 counts at each replay (the capture's eager first call of each part
-counts once), so a path's counts are its arm steps (kernels 1, 3) and
-tiles (kernel 2), plus one of each for every capture.
+counts once), so a path's counts are its arm steps (kernels 1, 3, 5),
+its tiles (kernel 2) and both (kernel 4: each step and each finish),
+plus one of each for every capture.
 Phases 6-9 run the port in this process, every launch counter set to 0
 just before each run and read just after.  Nothing of hypo_tpu or jax
 is imported or run.  Tolerance everywhere: 0 (every compared value is
@@ -131,8 +140,10 @@ from hypo_tpu_torch.poa import NW, LOV, ROV
 from hypo_tpu_torch.poa import device_full as TF
 from hypo_tpu_torch.poa import cuda_consensus
 from hypo_tpu_torch.poa.cuda_consensus import heaviest_bundle
-from hypo_tpu_torch.poa import cuda_poa
+from hypo_tpu_torch.poa import cuda_poa, cuda_rank
+from hypo_tpu_torch.poa.cuda_merge import merge_arm
 from hypo_tpu_torch.poa.cuda_poa import poa_dp_batch
+from hypo_tpu_torch.poa.cuda_rank import CONS_LEAVES, STEP_LEAVES, rank_arrays
 from hypo_tpu_torch.poa.cuda_tb import poa_tb_batch, poa_tb_matched
 from hypo_tpu_torch.poa.dp import (poa_dp_batch_ref, poa_tb_batch_ref,
                                    poa_tb_matched_ref)
@@ -140,11 +151,13 @@ from hypo_tpu_torch.poa.dp import (poa_dp_batch_ref, poa_tb_batch_ref,
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCORES = dict(m=5, n=-4, g=-8)
 LONG_SCORES = dict(m=3, n=-5, g=-4)
-KERNELS = ("poa_dp", "poa_tb", "consensus")
+KERNELS = ("poa_dp", "poa_tb", "consensus", "poa_rank", "poa_merge")
 # each kernel's wrappers; kernel 3 has one for each emitter
 COUNTERS = {"poa_dp": (poa_dp_batch,),
             "poa_tb": (poa_tb_batch, poa_tb_matched),
-            "consensus": (heaviest_bundle,)}
+            "consensus": (heaviest_bundle,),
+            "poa_rank": (rank_arrays,),
+            "poa_merge": (merge_arm,)}
 # the C entry by which a --baseline source is known as a kernel's
 BASELINE_ENTRY = {"poa_dp": "hypo_poa_dp", "poa_tb": "hypo_poa_tb",
                   "consensus": "hypo_heaviest_bundle"}
@@ -178,13 +191,14 @@ def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
     return float(np.median(ts))
 
 
-def kernel_ms(fn) -> tuple:
+def kernel_ms(fn, only=None) -> tuple:
     """(device ms, call ms) per call of a kernel wrapper fn(): the summed
     durations of the device kernels that KERNEL_INNER * REPS calls launch
-    under torch.profiler (CUDA activity only), over the calls, after one
-    warm-up; and cuda_ms's time per call.  The call time also holds the
-    wrapper's host work (argument checks, allocation, the ctypes
-    launch), and is that work's time where the kernel is shorter."""
+    under torch.profiler (CUDA activity only; with ``only``, just the
+    kernels whose name holds it), over the calls, after one warm-up; and
+    cuda_ms's time per call.  The call time also holds the wrapper's
+    host work (argument checks, allocation, the ctypes launch), and is
+    that work's time where the kernel is shorter."""
     from torch.profiler import ProfilerActivity, profile
     calls = KERNEL_INNER * REPS
     fn()
@@ -194,7 +208,8 @@ def kernel_ms(fn) -> tuple:
             fn()
         torch.cuda.synchronize()
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (only is None or only in e.name)]
     if not spans:
         raise RuntimeError("torch.profiler saw no device kernel")
     return sum(spans) / 1e3 / calls, cuda_ms(fn, inner=KERNEL_INNER)
@@ -775,6 +790,143 @@ def phase_tile_walk(name, calls, N, L, P) -> dict:
                 bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
 
 
+PRED_LEAVES = ("pred_nd_r", "pred_ranks", "pred_rows", "pred_w_r")
+
+
+def rank_bound(st, N, P, leaves) -> dict:
+    """Kernel 4's bound on this state for ``leaves``: per window its two
+    counts (8 bytes); per valid column its position and NCODES col_node
+    entries (28 bytes); per valid node its column and each other input an
+    asked leaf reads (code, support, predecessor count, out count: 4
+    bytes each; P predecessor ids, and P weights for pred_w_r); every
+    asked leaf written whole (int32, is_end_r one byte).  Operations:
+    about 12 a column and 14 a node (counting and placing), 3 an output
+    element."""
+    B = st.n_nodes.numel()
+    cols, nodes = int(st.n_cols.sum()), int(st.n_nodes.sum())
+    lv = set(leaves)
+    per_node = 4 + 4 * len(lv & {"node_code_r", "node_sup_r", "pred_cnt_r",
+                                 "is_end_r"})
+    per_node += 4 * P * (bool(lv & set(PRED_LEAVES)) + ("pred_w_r" in lv))
+    elems = sum(N * P if f in PRED_LEAVES else N for f in lv)
+    written = B * sum((N * P if f in PRED_LEAVES else N)
+                      * (1 if f == "is_end_r" else 4) for f in lv)
+    return bound(8 * B + 28 * cols + per_node * nodes + written,
+                 12 * cols + 14 * nodes + 3 * B * elems)
+
+
+def merge_bound(before, after, args, L, P) -> dict:
+    """Kernel 5's bound on this arm step: per window its flags, counts and
+    weight (18 bytes); per base of a window the merge reaches (active,
+    an arm, no earlier overflow) its code and alignment (8 bytes), for a
+    matched base its rank's column, col_node entry and position (12), for
+    an edge its node's P predecessor ids and count (4P + 4); per valid
+    column of a window whose merge applies its position read and written
+    (8), per applied base its node's support and per applied edge its
+    weight read and written (8 each); per new node its code, column and
+    col_node entry (12), per new column its position (4), per new edge
+    its predecessor id and both counts read and written (20); n_nodes and
+    n_cols written (8) or ovf (1).  Operations: about 40 + 2P a reached
+    base (four running scans, the slot search) and 3 a column."""
+    _ncr, matched, _arm, al, _w, active = args
+    reach = active & (al > 0) & ~before.ovf
+    applied = reach & ~after.ovf
+    j = torch.arange(L, device=al.device)[None, :]
+    based = j < al[:, None]
+    n = lambda x: int(x.sum())  # noqa: E731
+    bases = n(based & reach[:, None])
+    matched_b = n(based & reach[:, None] & (matched >= 0)
+                  & (before.n_nodes > 0)[:, None])
+    edges = n(based & (j >= 1) & reach[:, None])
+    a_bases = n(based & applied[:, None])
+    a_edges = n(based & (j >= 1) & applied[:, None])
+    cols = n(torch.where(applied, before.n_cols, 0))
+    new = [n(getattr(after, f) - getattr(before, f))
+           for f in ("n_nodes", "n_cols", "pred_cnt")]
+    nbytes = (18 * al.numel() + 8 * bases + 12 * matched_b
+              + (4 * P + 4) * edges + 8 * cols + 8 * a_bases + 8 * a_edges
+              + 12 * new[0] + 4 * new[1] + 20 * new[2] + 8 * n(applied)
+              + n(reach & ~applied))
+    return bound(nbytes, (40 + 2 * P) * bases + 3 * cols)
+
+
+def leaf_diff(a, b) -> int:
+    """max |a - b| over one leaf's two tensors (bool as 0 / 1)."""
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def phase_rank_merge(name, steps, final, N, L, P) -> tuple:
+    """Kernels 4 (rank) and 5 (merge) against their plain versions
+    (device_full._rank_arrays_batch, _merge_step) on the state before
+    every arm step of the tile, recorded as the eager arm steps ran, and
+    on its final state (the finish's rank): kernel 4 for all its leaves
+    and for the arm step's and the finish's subsets, kernel 5 on a copy
+    of each state (it works in place), every leaf.  Times at the third
+    arm step (kernel 4's step and all-leaf forms, kernel 5) and on the
+    final state (the finish's form).  Kernel 5 restores its copy of the
+    state before each call (12 device copies): its device time counts
+    its kernel alone, its call time is the pair's less the restore's."""
+    kw = dict(N=N, L=L, P=P)
+    err_r = err_m = 0
+    for st, args in steps + [(final, None)]:
+        want = TF._rank_arrays_batch(st, N)
+        for leaves in (cuda_rank.FIELDS, STEP_LEAVES, CONS_LEAVES):
+            got = rank_arrays(st, N, leaves)
+            err_r = max([err_r] + [leaf_diff(a, b) for f, a, b in zip(
+                cuda_rank.FIELDS, got, want) if f in leaves])
+        if args is not None:
+            want = TF._merge_step(st, *args, **kw)
+            got = merge_arm(TF.clone_state(st), *args, **kw)
+            err_m = max([err_m] + [leaf_diff(a, b)
+                                   for a, b in zip(got, want)])
+    if err_r or err_m:
+        raise RuntimeError(f"{name}: rank kernel != plain (max |diff| "
+                           f"{err_r}) or merge kernel != plain ({err_m})")
+    at = min(2, len(steps) - 1)
+    st, args = steps[at]
+    rank = {}
+    for label, state, leaves in (("step", st, STEP_LEAVES),
+                                 ("all", st, cuda_rank.FIELDS),
+                                 ("finish", final, CONS_LEAVES)):
+        ms, call_ms = kernel_ms(lambda: rank_arrays(state, N, leaves))
+        plain_ms = cuda_ms(lambda: TF._rank_arrays_batch(state, N))
+        bd = rank_bound(state, N, P, leaves)
+        rank[f"{name}_{label}"] = dict(
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err_r,
+            bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
+        log(f"rank {name} {label} ({len(leaves)} leaves) "
+            f"B={st.n_nodes.numel()} N={N} P={P}: equal at every arm step "
+            f"and on the final state; kernel {ms:.4f} ms "
+            f"({call_ms:.4f} ms a call), plain {plain_ms:.3f} ms; bound "
+            f"{bd['bound_ms']:.5f} ms by {bd['bound_by']} "
+            f"({bd['bytes'] / 1e6:.2f} MB): {bd['bound_ms'] / ms:.4f} of it")
+    work = TF.clone_state(st)
+
+    def restore():
+        for dst, src in zip(work, st):
+            dst.copy_(src)
+
+    def merge_once():
+        restore()
+        merge_arm(work, *args, **kw)
+
+    ms, pair_ms = kernel_ms(merge_once, only="poa_merge_kernel")
+    restore_ms = cuda_ms(restore, inner=KERNEL_INNER)
+    plain_ms = cuda_ms(lambda: TF._merge_step(st, *args, **kw))
+    bd = merge_bound(st, TF._merge_step(st, *args, **kw), args, L, P)
+    merge = {name: dict(ms=ms, call_ms=pair_ms - restore_ms,
+                        plain_ms=plain_ms, max_abs_err=err_m,
+                        bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])}
+    log(f"merge {name} B={st.n_nodes.numel()} N={N} L={L} P={P}: equal at "
+        f"all {len(steps)} arm steps; at step {at} ({int(args[5].sum())} "
+        f"active): kernel {ms:.4f} ms (a call with the restore "
+        f"{pair_ms:.4f} ms, the restore alone {restore_ms:.4f} ms), plain "
+        f"{plain_ms:.3f} ms; bound {bd['bound_ms']:.5f} ms by "
+        f"{bd['bound_by']} ({bd['bytes'] / 1e6:.2f} MB): "
+        f"{bd['bound_ms'] / ms:.4f} of it")
+    return rank, merge
+
+
 def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
                baseline=None) -> dict:
     K, P = 16, 8
@@ -793,7 +945,16 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
         return walk(bp, pred_rows, arm_len, mode, max_row, active=active,
                     **kw)
 
+    # the state before every arm step and the merge's other inputs, for
+    # the rank and merge phase (the merge updates the state in place)
+    states = []
+
+    def record_merge(st, *args, **kw):
+        states.append((TF.clone_state(st), args))
+        return merge_arm(st, *args, **kw)
+
     TF._traceback_matched_batch = record
+    TF.merge_arm = record_merge
     far = TF.poa_dp_batch = FarRows(poa_dp_batch)
     t0 = time.time()
     try:
@@ -801,11 +962,14 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
         torch.cuda.synchronize()
     finally:
         TF._traceback_matched_batch = walk
+        TF.merge_arm = merge_arm
         TF.poa_dp_batch = poa_dp_batch
     log(f"{name} tile arm steps ({int(narms.max())}): "
         f"{time.time() - t0:.2f} s; nodes max {int(st.n_nodes.max())}")
     tb = phase_tile_walk(name, calls, N, L, P)
     del calls
+    rank_merge = phase_rank_merge(name, states, st, N, L, P)
+    del states
 
     # 4. consensus kernel vs plain on the final graphs' rank arrays
     ra = TF._rank_arrays_batch(st, N)
@@ -886,7 +1050,7 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
                 tile=tile,
                 targs=targs, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
-                tb=tb, graphs=graphs, **versions)
+                tb=tb, rank_merge=rank_merge, graphs=graphs, **versions)
 
 
 def phase_graph(rng, name, tile, targs, N, L, P, dev) -> dict:
@@ -950,8 +1114,8 @@ def phase_profile(tile, targs, N, L, P, dev) -> None:
     activity only): device kernels and copies, their summed time, and
     the device's busy share (union of their intervals over the traced
     wall)."""
-    names = ("_rank_arrays_batch", "poa_dp_batch", "_traceback_matched_batch",
-             "_merge", "heaviest_bundle")
+    names = ("rank_arrays", "poa_dp_batch", "_traceback_matched_batch",
+             "merge_arm", "heaviest_bundle")
     orig = {n: getattr(TF, n) for n in names}
     spent = {n: [0.0, 0] for n in names}
 
@@ -991,7 +1155,7 @@ def phase_profile(tile, targs, N, L, P, dev) -> None:
     log(f"profile: eager tile with a sync around each step {inst:.3f} s = "
         + ", ".join(f"{n.strip('_')} {s:.3f} s ({c} calls)"
                     for n, (s, c) in spent.items())
-        + f", other {rest:.3f} s (curation, packing, state select)")
+        + f", other {rest:.3f} s (arm gather, curation, packing)")
     eager_wall, graph_wall = wall(eager), wall(graphs)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1478,6 +1642,11 @@ def main() -> None:
     cons = {t[0]: phase_tile(rng, dev, *t, baseline=baselines.get("consensus"))
             for t in TILES}
     tile_tb = {k: v.pop("tb") for k, v in cons.items()}
+    tile_rank, tile_merge = {}, {}
+    for v in cons.values():
+        r, m = v.pop("rank_merge")
+        tile_rank.update(r)
+        tile_merge.update(m)
     phase_profile(cons["class0"]["tile"], cons["class0"]["targs"],
                   N=TILES[0][3], L=TILES[0][2], P=8, dev=dev)
     with tempfile.TemporaryDirectory(prefix="hypo_chip_smoke_") as tmp:
@@ -1520,6 +1689,12 @@ def main() -> None:
         entry("heaviest_bundle", "consensus",
               "hypo_tpu/poa/pallas_consensus.py:191", "full_4mbp",
               "class0", cons),
+        entry("poa_rank", "poa_rank",
+              "hypo_tpu/poa/device_full.py:144-193 (XLA, no Pallas kernel)",
+              "full_4mbp", "class0_step", tile_rank),
+        entry("poa_merge", "poa_merge",
+              "hypo_tpu/poa/device_full.py:309-424 (XLA, no Pallas kernel)",
+              "full_4mbp", "class0", tile_merge),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

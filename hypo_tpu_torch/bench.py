@@ -90,7 +90,7 @@ TOTAL_RE = re.compile(r"Overall\. \[([0-9.]+) sec total")
 PINNED_MD5 = {(4_000_000, 1): "db85bbe32c2b4637f6e6a5e933e5c498"}
 BUCKETS = ("jobs", "pack", "issue", "warm_wait", "drain", "readback",
            "finalize", "leftovers", "rest")
-KERNELS = ("poa_dp", "poa_tb", "consensus")
+KERNELS = ("poa_dp", "poa_tb", "consensus", "poa_rank", "poa_merge")
 
 
 def log(msg: str) -> None:
@@ -269,11 +269,12 @@ def child(opts) -> None:
 
     from .cli import build_parser, flags_from_args
     from .pipeline.polish import polish
-    from .poa import cuda_consensus, cuda_poa, cuda_tb
+    from .poa import cuda_consensus, cuda_merge, cuda_poa, cuda_rank, cuda_tb
     from .tools.timing import card, device_for
     dev = device_for(opts.device)
     counters = (cuda_poa.poa_dp_batch, cuda_tb.poa_tb_matched,
-                cuda_consensus.heaviest_bundle)
+                cuda_consensus.heaviest_bundle, cuda_rank.rank_arrays,
+                cuda_merge.merge_arm)
     spans = Spans()
     spans.install()
     size = genome_size(opts.sim)
@@ -479,10 +480,11 @@ def main(argv: Optional[List[str]] = None) -> None:
             raise SystemExit("[bench] a device FASTA differs from the host "
                              "engine's (or the pin)")
         wps = warm["windows_per_s"]
+        value = round(wps, 2)
         print(json.dumps({
             "metric": "pipeline_windows_per_sec_per_chip",
-            "value": round(wps, 2), "unit": "windows/s",
-            "vs_baseline": round(wps / BASELINE_WINDOWS_PER_SEC, 3)}),
+            "value": value, "unit": "windows/s",
+            "vs_baseline": round(value / BASELINE_WINDOWS_PER_SEC, 3)}),
             flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -4,21 +4,25 @@ hypo_tpu.poa.colpoa_ref.
 
 A tile of B windows carries one fixed-shape graph state per window
 (``PoaState``, leading batch dimension B).  Each arm step ranks every
-graph, runs the graph-vs-arm DP (kernel 1, poa.cuda_poa), walks the
-backpointers (kernel 3, poa.cuda_tb) and merges the arm; after the last
-step the heaviest-bundle consensus (kernel 2, poa.cuda_consensus: one
-warp per window, the window's tables in shared memory; its plain
-version is ``_consensus_wavefront`` below) is curated and packed into
-nibbles.  Windows that overflow a cap get a sticky ``ovf`` flag and are
-re-run on the host engine by the runner.
+graph (kernel 4, poa.cuda_rank), runs the graph-vs-arm DP (kernel 1,
+poa.cuda_poa), walks the backpointers (kernel 3, poa.cuda_tb) and merges
+the arm into the state in place (kernel 5, poa.cuda_merge); after the
+last step the graphs are ranked again and the heaviest-bundle consensus
+(kernel 2, poa.cuda_consensus: one warp per window, the window's tables
+in shared memory) is curated and packed into nibbles.  Windows that
+overflow a cap get a sticky ``ovf`` flag and are re-run on the host
+engine by the runner.
 
-Where the JAX package expressed irregular indexing as one-hot compares
-and f32 matmuls (a TPU workaround, device_full.py:24-28, 105-142), this
-port uses integer gather / scatter: every scatter target below is
-unique per window (an alignment path visits each column, node and edge
-at most once), except a dummy slot past the end that absorbs masked
-writes and is dropped.  The rank order is a sort by (column position,
-node id) instead of JAX's counting; the two are equal.
+The plain versions of kernels 4, 5 and 2 are ``_rank_arrays_batch``,
+``_merge_step`` (``_merge`` and the state selection) and
+``_consensus_wavefront`` below.  Where the JAX package expressed
+irregular indexing as one-hot compares and f32 matmuls (a TPU
+workaround, device_full.py:24-28, 105-142), they use integer gather /
+scatter: every scatter target is unique per window (an alignment path
+visits each column, node and edge at most once), except a dummy slot
+past the end that absorbs masked writes and is dropped.  The plain rank
+order is a sort by (column position, node id) where JAX and kernel 4
+count; the two are equal.
 
 Everything runs on the device of the tensors it is given; the kernel
 wrappers take their plain versions only for CPU tensors.  The tile
@@ -43,7 +47,9 @@ import torch
 from .. import _build
 from . import BIG, NCODES, NEG
 from .cuda_consensus import heaviest_bundle
+from .cuda_merge import merge_arm
 from .cuda_poa import poa_dp_batch
+from .cuda_rank import CONS_LEAVES, STEP_LEAVES, rank_arrays
 from .cuda_tb import poa_tb_matched
 
 _I32 = torch.int32
@@ -75,6 +81,11 @@ def _reset_state(st: PoaState) -> None:
     """Make ``st`` a fresh state again, in place."""
     for leaf, v in zip(st, _FRESH):
         leaf.fill_(v)
+
+
+def clone_state(st: PoaState) -> PoaState:
+    """A copy of ``st`` that an in-place arm step does not change."""
+    return PoaState(*(leaf.clone() for leaf in st))
 
 
 def init_state(N: int, P: int, B: int, device) -> PoaState:
@@ -271,12 +282,34 @@ def _merge(st: PoaState, node_col_r, matched, arm, arm_len, w, *, N, L, P):
     return new_st, ovf
 
 
+def _merge_step(st: PoaState, node_col_r, matched, arm, arm_len, w, active,
+                *, N, L, P) -> PoaState:
+    """The plain version of kernel 5 (poa.cuda_merge.merge_arm), which
+    works in place where this returns a new state: the merge of
+    ``_merge`` where it applies (the window is active, has an arm and has
+    not overflowed, before or now), the old state elsewhere, and a sticky
+    ovf (hypo_tpu device_full._arm_step_batch, :470-483).  An empty graph
+    takes every base as an insertion, whatever ``matched`` holds."""
+    matched = torch.where((st.n_nodes == 0)[:, None], -1, matched)
+    new_st, ovf = _merge(st, node_col_r, matched, arm, arm_len, w, N=N, L=L,
+                         P=P)
+    apply = active & (arm_len > 0) & ~st.ovf & ~ovf
+
+    def sel(old, new):
+        keep = apply.reshape(apply.shape + (1,) * (new.dim() - 1))
+        return torch.where(keep, new, old)
+
+    out = PoaState(*(sel(a, b) for a, b in zip(st, new_st)))
+    return out._replace(ovf=st.ovf | (active & (arm_len > 0) & ovf))
+
+
 def _arm_step_batch(st: PoaState, arm, arm_len, mode, active, w=None, *,
                     N, L, P, m, n, g) -> PoaState:
-    """One arm round for the whole window batch: rank, DP (kernel 1),
-    traceback, merge.  st leaves carry a leading batch dim B; arm [B, L];
-    arm_len, mode, active, w [B]."""
-    ra = _rank_arrays_batch(st, N)
+    """One arm round for the whole window batch: rank (kernel 4), DP
+    (kernel 1), traceback (kernel 3), merge (kernel 5).  st leaves carry
+    a leading batch dim B; arm [B, L]; arm_len, mode, active, w [B].
+    The merge updates ``st`` in place; returns it."""
+    ra = rank_arrays(st, N, STEP_LEAVES)
     # windows done with their arms (or empty this round) skip the DP
     # (n_nodes -> 0) and start the traceback stopped
     act = active & (arm_len > 0) & (st.n_nodes > 0)
@@ -286,20 +319,9 @@ def _arm_step_batch(st: PoaState, arm, arm_len, mode, active, w=None, *,
         arm, arm_len, mode, N=N, L=L, P=P, m=m, n=n, g=g)
     matched = _traceback_matched_batch(bp, ra.pred_rows, arm_len, mode,
                                        max_row, active=act, N=N, L=L, P=P)
-    # empty graph (first sequence): everything is an insertion
-    matched = torch.where((st.n_nodes == 0)[:, None], -1, matched)
-    if w is None:
-        w = torch.ones_like(arm_len)
-    new_st, ovf = _merge(st, ra.node_col_r, matched, arm, arm_len, w, N=N,
-                         L=L, P=P)
-    apply = active & (arm_len > 0) & ~st.ovf & ~ovf
-
-    def sel(old, new):
-        keep = apply.reshape(apply.shape + (1,) * (new.dim() - 1))
-        return torch.where(keep, new, old)
-
-    out = PoaState(*(sel(a, b) for a, b in zip(st, new_st)))
-    return out._replace(ovf=st.ovf | (active & (arm_len > 0) & ovf))
+    w = torch.ones_like(arm_len) if w is None else w.contiguous()
+    return merge_arm(st, ra.node_col_r, matched, arm, arm_len, w, active,
+                     N=N, L=L, P=P)
 
 
 def _consensus_wavefront(pred_ranks, pred_w_r, pred_cnt_r, is_end_r,
@@ -398,10 +420,10 @@ def _consensus_wavefront(pred_ranks, pred_w_r, pred_cnt_r, is_end_r,
 
 
 def _consensus_batch(st: PoaState, *, N, P):
-    """Heaviest-bundle consensus of every window (kernel 2 on CUDA, the
-    wavefront on the CPU), reversed into forward order.  Returns
-    (cons_codes [B, N], cons_sup [B, N], cons_len [B])."""
-    ra = _rank_arrays_batch(st, N)
+    """Heaviest-bundle consensus of every window (kernels 4 and 2 on
+    CUDA, their plain versions on the CPU), reversed into forward order.
+    Returns (cons_codes [B, N], cons_sup [B, N], cons_len [B])."""
+    ra = rank_arrays(st, N, CONS_LEAVES)
     codes_bwd, sups_bwd, cons_len = heaviest_bundle(
         ra.pred_ranks, ra.pred_w_r, ra.pred_cnt_r, ra.is_end_r,
         ra.node_code_r, ra.node_sup_r, st.n_nodes,
@@ -565,19 +587,17 @@ class _Block:
 
     def step(self) -> None:
         """One arm step (run_arm_steps' loop body) with the arm index k
-        read on the device: arm k of every window merged into its graph,
-        then k += 1."""
+        read on the device: arm k of every window merged into its graph
+        (the state's buffers updated in place), then k += 1."""
         pool, plen, idx, amode, aw, narms, _th = self.inputs
         col = self.k.long().expand(idx.shape[0], 1)
         rows = idx.gather(1, col)[:, 0]
         active = (self.k < narms) & (rows >= 0)
         rr = rows.clamp(min=0).long()
         al = torch.where(active, plen[rr], 0)
-        new = _arm_step_batch(self.st, pool[rr].to(_I32), al,
-                              amode.gather(1, col)[:, 0].to(_I32), active,
-                              aw.gather(1, col)[:, 0], **self.kw)
-        for leaf, v in zip(self.st, new):
-            leaf.copy_(v)
+        _arm_step_batch(self.st, pool[rr].to(_I32), al,
+                        amode.gather(1, col)[:, 0].to(_I32), active,
+                        aw.gather(1, col)[:, 0], **self.kw)
         self.k += 1
 
     def finish(self) -> None:

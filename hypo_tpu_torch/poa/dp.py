@@ -246,7 +246,7 @@ def poa_tb_matched_ref(bp, pred_rows, arm_len, mode, max_row, active, *,
         i = torch.where(stopped, i, prev_i)
         j = torch.where(stopped, j, prev_j)
         stopped = stopped | stop_of(i, j)
-    return matched[:, :L]
+    return matched[:, :L].contiguous()
 
 
 def poa_dp_tb_batch_ref(node_code, pred_rows, pred_cnt, is_end, n_nodes,

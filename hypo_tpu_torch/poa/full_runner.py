@@ -42,8 +42,9 @@ program queues its work without a host sync (pinned uploads, the arm
 loop's bound from the host's narms), then the runner drains the devices
 (``_drain``) and reads the tiles back in order (``_readback``).  With
 ``HYPO_POA_DEBUG`` set, both print the JAX runner's stage lines
-(``[poa] ...``) to stdout.  ``warm()`` builds the three kernels and runs
-the tile program once on a zero tile in a background thread, as the JAX
+(``[poa] ...``) to stdout.  ``warm()`` builds kernels 1-3 and runs the
+tile program (which builds kernels 4 and 5 at their first launch) once
+on a zero tile in a background thread, as the JAX
 package does, so that both (and the capture of the program's graphs)
 overlap the host stages; the first dispatch waits for the thread and
 raises the error it met, if any.
@@ -169,7 +170,9 @@ class FullDeviceRunner(DeviceConsensusRunner):
         once on a zero tile (hypo_tpu full_runner.warm, where the first
         call compiles the program): every window empty but the first,
         which has one empty arm slot, so that the arm loop runs one step
-        and all three kernels launch.  On a CUDA device that first tile
+        and all five kernels launch (the rank and merge kernels, not in
+        KERNELS, are built at that first launch).  On a CUDA device that
+        first tile
         captures the program's graphs, so they are made here, behind the
         host stages.  The first dispatch joins the thread and raises the
         error it met, if any; unlike the JAX package's, a failed warm-up

@@ -8,20 +8,28 @@ Builds a mid-POA class-0 state (L=126, N=256, P=8): 64 windows, each
 with 5 mutated copies of a random 120-base sequence (3% substitutions,
 every third arm one base shorter) merged by the port's ``run_arm_steps``
 on the chosen device, plus one more such arm per window; then tiles it
-to B windows.  Each part of an arm step is timed per call:
+to B windows; then merges that arm (one arm step), so that an arm
+step on the state re-merges an arm every graph already holds.
+The merge works in place, and such a step does the same work at every
+call (only supports and edge weights grow).  Each part of an arm step is
+timed per call on that state:
 
-  rank   device_full._rank_arrays_batch   (topological order, rank arrays)
+  rank   cuda_rank.rank_arrays            (kernel 4: the arm step's
+                                           rank arrays)
   dp     cuda_poa.poa_dp_batch            (kernel 1, the DP)
   tb     device_full._traceback_matched_batch (kernel 3's tile emitter)
-  merge  device_full._merge               (the aligned arm into the graph)
-  cons   device_full._consensus_batch     (rank, kernel 2, reversal)
-  step   device_full._arm_step_batch      (rank + dp + tb + merge + select)
+  merge  cuda_merge.merge_arm             (kernel 5: the aligned arm into
+                                           the graph, in place)
+  cons   device_full._consensus_batch     (kernel 4, kernel 2, reversal)
+  step   device_full._arm_step_batch      (rank + dp + tb + merge)
 
 then two more rows.  ``step (graph)`` (CUDA only): the tile program's
 own ``step`` graph (poa.device_full.build_tile_program at B, the graph
-the runner replays), its state set to the eager step's and its counter
-to 0 before each replay; its output is compared leaf by leaf with the
-eager step's, and the tool fails if they differ.  ``tile``: one tile of
+the runner replays), its state set to the eager step's input and its
+counter to 0 before the first replay; its output is compared leaf by
+leaf with the eager step's, and the tool fails if they differ; its
+device kernels and copies per call are the step graph's kernel count.
+``tile``: one tile of
 the 64 windows' 6 arms tiled to B, eager (device_full.run_tile_eager)
 against the tile program (graph replays on CUDA, its parts called
 directly on the CPU); the tool fails unless both give the same bytes.
@@ -49,7 +57,9 @@ import numpy as np
 import torch
 
 from ..poa import device_full as TF
+from ..poa.cuda_merge import merge_arm
 from ..poa.cuda_poa import poa_dp_batch
+from ..poa.cuda_rank import STEP_LEAVES, rank_arrays
 from .timing import card, device_for, event_ms, fmt, profiled_ms, sync
 
 L, N, K, P = 126, 256, 16, 8
@@ -118,31 +128,33 @@ def step_inputs(B: int, device):
     return st, arm, alen, mode, active, w
 
 
-def parts(st, arm, alen, mode, active, w) -> Dict[str, callable]:
-    """Each part of the arm step as a call on these inputs, with the
-    intermediate inputs of dp, tb and merge computed once as the step
-    computes them."""
-    ra = TF._rank_arrays_batch(st, N)
-    act = active & (alen > 0) & (st.n_nodes > 0)
+def parts(st, arm, alen, mode, active, w):
+    """(each part of the arm step as a call, the state they work on): the
+    state is a copy of ``st`` with the arm merged once, and the inputs of
+    dp, tb and merge are computed once on it as the step computes them.
+    merge and step each update a copy of their own in place."""
+    kw = dict(N=N, L=L, P=P)
+    work = TF._arm_step_batch(TF.clone_state(st), arm, alen, mode, active,
+                              w, **kw, **SCORES)
+    ra = rank_arrays(work, N, STEP_LEAVES)
+    act = active & (alen > 0) & (work.n_nodes > 0)
     dp_args = (ra.node_code_r, ra.pred_rows, ra.pred_cnt_r, ra.is_end_r,
-               torch.where(act, st.n_nodes, 0), arm, alen, mode)
-    bp, max_row = poa_dp_batch(*dp_args, N=N, L=L, P=P, **SCORES)
+               torch.where(act, work.n_nodes, 0), arm, alen, mode)
+    bp, max_row = poa_dp_batch(*dp_args, **kw, **SCORES)
     matched = TF._traceback_matched_batch(bp, ra.pred_rows, alen, mode,
-                                          max_row, active=act, N=N, L=L,
-                                          P=P)
-    matched = torch.where((st.n_nodes == 0)[:, None], -1, matched)
+                                          max_row, active=act, **kw)
+    merged, stepped = TF.clone_state(work), TF.clone_state(work)
     return {
-        "rank": lambda: TF._rank_arrays_batch(st, N),
-        "dp": lambda: poa_dp_batch(*dp_args, N=N, L=L, P=P, **SCORES),
+        "rank": lambda: rank_arrays(work, N, STEP_LEAVES),
+        "dp": lambda: poa_dp_batch(*dp_args, **kw, **SCORES),
         "tb": lambda: TF._traceback_matched_batch(
-            bp, ra.pred_rows, alen, mode, max_row, active=act, N=N, L=L,
-            P=P),
-        "merge": lambda: TF._merge(st, ra.node_col_r, matched, arm, alen, w,
-                                   N=N, L=L, P=P),
-        "cons": lambda: TF._consensus_batch(st, N=N, P=P),
-        "step": lambda: TF._arm_step_batch(st, arm, alen, mode, active, w,
-                                           N=N, L=L, P=P, **SCORES),
-    }
+            bp, ra.pred_rows, alen, mode, max_row, active=act, **kw),
+        "merge": lambda: merge_arm(merged, ra.node_col_r, matched, arm,
+                                   alen, w, active, **kw),
+        "cons": lambda: TF._consensus_batch(work, N=N, P=P),
+        "step": lambda: TF._arm_step_batch(stepped, arm, alen, mode, active,
+                                           w, **kw, **SCORES),
+    }, work
 
 
 def tile_arrays(B: int):
@@ -166,8 +178,9 @@ def program(B: int, A: int, dev):
 def graph_step(st, arm, alen, dev):
     """The tile program's step graph set to replay the class-0 step on
     state ``st``: arm b of ``arm`` into window b, weight 1, mode NW.
-    Returns (the program's block, whose state the replays update, and a
-    call that sets its arm counter to 0 and replays the step graph)."""
+    Returns (the program's block, whose state the replays update in
+    place, starting from a copy of ``st``, and a call that sets its arm
+    counter to 0 and replays the step graph)."""
     B = arm.shape[0]
     prog = program(B, B, dev)
     # every arm slot of window b reads pool row b
@@ -246,14 +259,14 @@ def profile(B: int, reps: int, dev, inner: int = 10) -> List[dict]:
     """The table's rows (printed as they are measured); a row's ms is
     the median of ``reps`` samples of ``inner`` calls."""
     inputs = step_inputs(B, dev)
-    calls = parts(*inputs)
+    calls, st = parts(*inputs)
     rows = []
     for name in PARTS:
         rows.append(row(name, calls[name], dev, reps, inner))
         log_row(rows[-1])
     if dev.type == "cuda":
-        st = inputs[0]
-        eager = calls["step"]()
+        eager = TF._arm_step_batch(TF.clone_state(st), *inputs[1:], N=N,
+                                   L=L, P=P, **SCORES)
         block, replay = graph_step(st, inputs[1], inputs[2], dev)
         replay()
         sync(dev)

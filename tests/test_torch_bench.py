@@ -363,8 +363,11 @@ def test_profile_tool_on_the_cpu(capsys):
 
 def test_profile_tool_state_and_step_equal_the_jax_tool():
     """The port's state (run_arm_steps over 64 windows x 5 arms) equals
-    the JAX tool's (its XLA arm step), and the tool's step equals
-    device_full._arm_step_batch and JAX's _arm_step_batch on it."""
+    the JAX tool's (its XLA arm step); the state the tool's parts work on
+    (a copy with the next arm merged, the caller's state untouched)
+    equals device_full._arm_step_batch and JAX's _arm_step_batch on it,
+    and the tool's step, which merges that arm again, equals JAX's second
+    step."""
     import jax
     jtool = _tool("profile_device")
     L, N, P = profile_device.L, profile_device.N, profile_device.P
@@ -375,18 +378,27 @@ def test_profile_tool_state_and_step_equal_the_jax_tool():
     assert np.array_equal(arm.numpy(), jarm)
     assert np.array_equal(alen.numpy(), jalen)
     inputs = profile_device.step_inputs(64, CPU)
-    got = profile_device.parts(*inputs)["step"]()
+    before = TF.clone_state(inputs[0])
+    calls, work = profile_device.parts(*inputs)
+    for a, b in zip(inputs[0], before):
+        assert torch.equal(a, b)
     direct = TF._arm_step_batch(*inputs, N=N, L=L, P=P,
                                 **profile_device.SCORES)
+    got = calls["step"]()
     B = 64
     jstep = jax.jit(functools.partial(JDF._arm_step_batch, N=N, L=L, P=P,
                                       m=5, n=-4, g=-8, dp_impl="xla"))
-    jout = jstep(jst, jarm, jalen, np.zeros(B, np.int32), np.ones(B, bool))
+    jin = (jarm, jalen, np.zeros(B, np.int32), np.ones(B, bool))
+    jout = jstep(jst, *jin)
+    jout2 = jax.tree_util.tree_map(np.asarray, jstep(jout, *jin))
     jout = jax.tree_util.tree_map(np.asarray, jout)
-    for f, a, b, c in zip(TF.PoaState._fields, got, direct, jout):
+    for f, a, b, c, d, e in zip(TF.PoaState._fields, work, direct, jout, got,
+                                jout2):
         assert torch.equal(a, b), f
         assert np.array_equal(a.numpy(), c), f
-    assert int(got.n_nodes.min()) > int(inputs[0].n_nodes.min())
+        assert np.array_equal(d.numpy(), e), f
+    assert int(work.n_nodes.min()) > int(before.n_nodes.min())
+    assert torch.equal(got.n_nodes, work.n_nodes)
 
 
 def test_long_window_stats_equal_the_jax_tool(tmp_path, capsys):

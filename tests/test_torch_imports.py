@@ -29,7 +29,8 @@ def test_port_imports_no_jax():
     code = ("import sys, hypo_tpu_torch, hypo_tpu_torch.cli, "
             "hypo_tpu_torch.poa.full_runner, hypo_tpu_torch.pipeline.polish,"
             " hypo_tpu_torch.state, hypo_tpu_torch.poa.batch, "
-            "hypo_tpu_torch.poa.cuda_tb, hypo_tpu_torch.parallel, "
+            "hypo_tpu_torch.poa.cuda_tb, hypo_tpu_torch.poa.cuda_rank, "
+            "hypo_tpu_torch.poa.cuda_merge, hypo_tpu_torch.parallel, "
             "hypo_tpu_torch.parallel.distributed, hypo_tpu_torch.entry, "
             "hypo_tpu_torch.kmers.__main__, hypo_tpu_torch.bench, "
             "hypo_tpu_torch.tools.profile_device, "
@@ -56,7 +57,8 @@ assert {{"hypo_tpu_torch.entry", "hypo_tpu_torch.kmers.__main__",
          "hypo_tpu_torch.parallel.mesh", "hypo_tpu_torch.bench",
          "hypo_tpu_torch.tools.profile_device",
          "hypo_tpu_torch.tools.long_window_stats",
-         "hypo_tpu_torch.tools.timing"}} <= set(names), names
+         "hypo_tpu_torch.tools.timing", "hypo_tpu_torch.poa.cuda_rank",
+         "hypo_tpu_torch.poa.cuda_merge"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 from hypo_tpu_torch import cli, sim
