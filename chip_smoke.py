@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (hypo_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--baseline OLD_poa_dp.cu OLD_poa_tb.cu
-                           OLD_consensus.cu]
+                           OLD_consensus.cu OLD_poa_merge.cu]
 
 Phases, each raising on failure (so the script exits non-zero and never
 prints its last line):
@@ -24,8 +24,8 @@ prints its last line):
      larger of the bytes it must move over 3.35 TB/s and its int32
      operations over 132 SMs x 64 lanes x the card's clocks.max.sm.
      ``--baseline`` takes earlier sources of kernel 1 (csrc/poa_dp.cu),
-     kernel 3 (csrc/poa_tb.cu) and kernel 2 (csrc/consensus.cu), told
-     apart by the entry they export, and times each at its shapes in
+     kernel 3 (csrc/poa_tb.cu), kernel 2 (csrc/consensus.cu) and kernel
+     5 (csrc/poa_merge.cu), told apart by the entry they export, and times each at its shapes in
      turns with this one (baseline, this, this, baseline), after
      checking it against the plain version;
   4. consensus kernel vs its plain version on the rank arrays of a real
@@ -46,7 +46,10 @@ prints its last line):
      5 on a copy of each state (it merges in place), every leaf equal;
      device and call times at the third step (kernel 5's device time
      from its kernel alone: its state is restored before each call),
-     each against its bound on that step's own bytes;
+     each against its bound on that step's own bytes; kernel 5's launch
+     shape; with a ``--baseline`` of kernel 5, that kernel checked
+     against the plain version and timed in turns with this one at the
+     third step;
   5. each tile through the tile program (its CUDA graphs captured at
      that first tile) vs the eager arm steps and finish, and vs the
      NumPy spec hypo_tpu_torch.poa.colpoa_ref.ColPoa on every window
@@ -140,7 +143,7 @@ from hypo_tpu_torch.poa import NW, LOV, ROV
 from hypo_tpu_torch.poa import device_full as TF
 from hypo_tpu_torch.poa import cuda_consensus
 from hypo_tpu_torch.poa.cuda_consensus import heaviest_bundle
-from hypo_tpu_torch.poa import cuda_poa, cuda_rank
+from hypo_tpu_torch.poa import cuda_merge, cuda_poa, cuda_rank
 from hypo_tpu_torch.poa.cuda_merge import merge_arm
 from hypo_tpu_torch.poa.cuda_poa import poa_dp_batch
 from hypo_tpu_torch.poa.cuda_rank import CONS_LEAVES, STEP_LEAVES, rank_arrays
@@ -160,7 +163,8 @@ COUNTERS = {"poa_dp": (poa_dp_batch,),
             "poa_merge": (merge_arm,)}
 # the C entry by which a --baseline source is known as a kernel's
 BASELINE_ENTRY = {"poa_dp": "hypo_poa_dp", "poa_tb": "hypo_poa_tb",
-                  "consensus": "hypo_heaviest_bundle"}
+                  "consensus": "hypo_heaviest_bundle",
+                  "poa_merge": "hypo_poa_merge"}
 REPS = 5
 KERNEL_INNER = 10
 POA_RE = re.compile(r"POA over (\d+) windows\. \[([0-9.]+) sec")
@@ -191,28 +195,46 @@ def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
     return float(np.median(ts))
 
 
-def kernel_ms(fn, only=None) -> tuple:
-    """(device ms, call ms) per call of a kernel wrapper fn(): the summed
-    durations of the device kernels that KERNEL_INNER * REPS calls launch
-    under torch.profiler (CUDA activity only; with ``only``, just the
-    kernels whose name holds it), over the calls, after one warm-up; and
-    cuda_ms's time per call.  The call time also holds the wrapper's
-    host work (argument checks, allocation, the ctypes launch), and is
-    that work's time where the kernel is shorter."""
+def traced_ms(fn, only=None, tries: int = 3):
+    """The summed durations of the device kernels that KERNEL_INNER *
+    REPS calls of fn() launch under torch.profiler (CUDA activity only;
+    with ``only``, just the kernels whose name holds it), over the calls,
+    after one warm-up; None when ``tries`` traces in a row held no such
+    kernel (the profiler's device activity is sometimes lost)."""
     from torch.profiler import ProfilerActivity, profile
     calls = KERNEL_INNER * REPS
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (only is None or only in e.name)]
-    if not spans:
-        raise RuntimeError("torch.profiler saw no device kernel")
-    return sum(spans) / 1e3 / calls, cuda_ms(fn, inner=KERNEL_INNER)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (only is None or only in e.name)]
+        if spans:
+            return sum(spans) / 1e3 / calls
+    return None
+
+
+def kernel_ms(fn, only=None, less=None) -> tuple:
+    """(device ms, call ms) per call of a kernel wrapper fn(): traced_ms's
+    device time, and cuda_ms's time per call.  The call time also holds
+    the wrapper's host work (argument checks, allocation, the ctypes
+    launch), and is that work's time where the kernel is shorter.  Where
+    the profiler saw no kernel, the device time is the call time, less
+    cuda_ms of ``less`` (the work fn does around the kernel), and a line
+    says so."""
+    ms = traced_ms(fn, only)
+    call_ms = cuda_ms(fn, inner=KERNEL_INNER)
+    if ms is None:
+        ms = call_ms - (cuda_ms(less, inner=KERNEL_INNER) if less else 0.0)
+        log(f"torch.profiler saw no device kernel{f' {only}' if only else ''}"
+            f" in 3 traces: its device time {ms:.4f} ms is from CUDA "
+            f"events (a call{', less the work around it' if less else ''})")
+    return ms, call_ms
 
 
 def launch_counts() -> dict:
@@ -435,10 +457,12 @@ def dp_diff(out, ref, nn, N) -> int:
     return max(bp_diff, (out[1] - ref[1]).abs().amax().item())
 
 
-def in_turns(what: str, run_old, run_new) -> dict:
+def in_turns(what: str, run_old, run_new, only=None, less=None) -> dict:
     """A kernel against its baseline on the same inputs, timed in turns
-    (baseline, kernel, kernel, baseline): device and call times."""
-    t = [kernel_ms(f) for f in (run_old, run_new, run_new, run_old)]
+    (baseline, kernel, kernel, baseline): device and call times (device
+    time of the kernels named ``only``, as kernel_ms counts it)."""
+    t = [kernel_ms(f, only, less)
+         for f in (run_old, run_new, run_new, run_old)]
     old_ms, new_ms = (t[0][0] + t[3][0]) / 2, (t[1][0] + t[2][0]) / 2
     old_call, new_call = (t[0][1] + t[3][1]) / 2, (t[1][1] + t[2][1]) / 2
     log(f"{what} (in turns: baseline, this, this, baseline): device "
@@ -855,7 +879,46 @@ def leaf_diff(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def phase_rank_merge(name, steps, final, N, L, P) -> tuple:
+def merge_call(lib, st, args, N, L, P):
+    """Kernel 5 of library ``lib`` (an earlier source's) on ``st`` in
+    place, through its C entry hypo_poa_merge."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    p = _build.ptr
+    lib.hypo_poa_merge.restype = ci
+    lib.hypo_poa_merge.argtypes = [vp] * 18 + [ci] * 4 + [vp]
+    rc = lib.hypo_poa_merge(*[p(x) for x in st], *[p(x) for x in args],
+                            args[0].shape[0], N, L, P,
+                            ctypes.c_void_p(
+                                torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, rc, "poa_merge launch")
+
+
+def merge_versions(name, args, want, N, L, P, restore, work,
+                   baseline) -> dict:
+    """Kernel 5 against an earlier kernel 5 (``baseline``, its C entry
+    hypo_poa_merge) at this step, in turns, each call on the restored
+    state; the baseline checked against the plain version first."""
+    if baseline is None:
+        return {}
+    restore()
+    merge_call(baseline, work, args, N, L, P)
+    err = max(leaf_diff(a, b) for a, b in zip(work, want))
+    if err:
+        raise RuntimeError(f"baseline merge != plain on {name}: {err}")
+
+    def old():
+        restore()
+        merge_call(baseline, work, args, N, L, P)
+
+    def new():
+        restore()
+        merge_arm(work, *args, N=N, L=L, P=P)
+
+    return in_turns(f"merge {name}", old, new, only="poa_merge_kernel",
+                    less=restore)
+
+
+def phase_rank_merge(name, steps, final, N, L, P, baseline=None) -> tuple:
     """Kernels 4 (rank) and 5 (merge) against their plain versions
     (device_full._rank_arrays_batch, _merge_step) on the state before
     every arm step of the tile, recorded as the eager arm steps ran, and
@@ -865,7 +928,9 @@ def phase_rank_merge(name, steps, final, N, L, P) -> tuple:
     arm step (kernel 4's step and all-leaf forms, kernel 5) and on the
     final state (the finish's form).  Kernel 5 restores its copy of the
     state before each call (12 device copies): its device time counts
-    its kernel alone, its call time is the pair's less the restore's."""
+    its kernel alone, its call time is the pair's less the restore's;
+    there it is also timed against the ``baseline`` library of an
+    earlier kernel 5 in turns."""
     kw = dict(N=N, L=L, P=P)
     err_r = err_m = 0
     for st, args in steps + [(final, None)]:
@@ -910,25 +975,39 @@ def phase_rank_merge(name, steps, final, N, L, P) -> tuple:
         restore()
         merge_arm(work, *args, **kw)
 
-    ms, pair_ms = kernel_ms(merge_once, only="poa_merge_kernel")
+    ms, pair_ms = kernel_ms(merge_once, only="poa_merge_kernel",
+                            less=restore)
     restore_ms = cuda_ms(restore, inner=KERNEL_INNER)
     plain_ms = cuda_ms(lambda: TF._merge_step(st, *args, **kw))
-    bd = merge_bound(st, TF._merge_step(st, *args, **kw), args, L, P)
+    want = TF._merge_step(st, *args, **kw)
+    bd = merge_bound(st, want, args, L, P)
+    shape = cuda_merge.launch_shape(N, L)
     merge = {name: dict(ms=ms, call_ms=pair_ms - restore_ms,
                         plain_ms=plain_ms, max_abs_err=err_m,
-                        bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])}
+                        bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                        launch=shape._asdict())}
     log(f"merge {name} B={st.n_nodes.numel()} N={N} L={L} P={P}: equal at "
         f"all {len(steps)} arm steps; at step {at} ({int(args[5].sum())} "
         f"active): kernel {ms:.4f} ms (a call with the restore "
         f"{pair_ms:.4f} ms, the restore alone {restore_ms:.4f} ms), plain "
         f"{plain_ms:.3f} ms; bound {bd['bound_ms']:.5f} ms by "
         f"{bd['bound_by']} ({bd['bytes'] / 1e6:.2f} MB): "
-        f"{bd['bound_ms'] / ms:.4f} of it")
+        f"{bd['bound_ms'] / ms:.4f} of it; launch {shape.per} bases a "
+        f"thread, {shape.warps} warp(s) a window, {shape.windows} "
+        f"window(s) a block: {shape.threads} threads, {shape.smem} B "
+        f"shared memory a block")
+    versions = merge_versions(name, args, want, N, L, P, restore, work,
+                              baseline)
+    if versions:
+        merge[name].update(versions)
+        log(f"merge {name} share of the bound: baseline "
+            f"{bd['bound_ms'] / versions['baseline_ms']:.4f}, this kernel "
+            f"{bd['bound_ms'] / versions['new_ms']:.4f}")
     return rank, merge
 
 
 def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
-               baseline=None) -> dict:
+               baseline=None, merge_baseline=None) -> dict:
     K, P = 16, 8
     t0 = time.time()
     pool, plen, idx, amode, aw, narms, specs = random_tile(
@@ -968,7 +1047,8 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
         f"{time.time() - t0:.2f} s; nodes max {int(st.n_nodes.max())}")
     tb = phase_tile_walk(name, calls, N, L, P)
     del calls
-    rank_merge = phase_rank_merge(name, states, st, N, L, P)
+    rank_merge = phase_rank_merge(name, states, st, N, L, P,
+                                  baseline=merge_baseline)
     del states
 
     # 4. consensus kernel vs plain on the final graphs' rank arrays
@@ -1624,7 +1704,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="CU", nargs="+", default=[],
                     help="earlier sources of csrc/poa_dp.cu, "
-                         "csrc/poa_tb.cu and/or csrc/consensus.cu, each "
+                         "csrc/poa_tb.cu, csrc/consensus.cu and/or "
+                         "csrc/poa_merge.cu, each "
                          "timed in turns with the kernel it exports the "
                          "entry of, in the same run, at that kernel's "
                          "shapes")
@@ -1639,7 +1720,8 @@ def main() -> None:
     baselines = phase_build(opts.baseline)
     dp = phase_dp(rng, dev, baselines.get("poa_dp"))
     exact_dp, exact_tb = phase_exact_dp(rng, dev, baselines)
-    cons = {t[0]: phase_tile(rng, dev, *t, baseline=baselines.get("consensus"))
+    cons = {t[0]: phase_tile(rng, dev, *t, baseline=baselines.get("consensus"),
+                             merge_baseline=baselines.get("poa_merge"))
             for t in TILES}
     tile_tb = {k: v.pop("tb") for k, v in cons.items()}
     tile_rank, tile_merge = {}, {}

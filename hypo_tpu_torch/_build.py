@@ -3,8 +3,8 @@ git-ignored ``_build/`` directory.
 
 Each CUDA kernel ``csrc/<name>.cu`` exports a plain C interface and is
 compiled with ``nvcc`` for Hopper (sm_90a) into ``_build/lib<name>.so``,
-then loaded with ctypes.  A library is rebuilt when its source is
-newer.  A failed nvcc build raises with the compiler's output: there is
+then loaded with ctypes.  A library is rebuilt when its source, or a
+header of ``csrc/``, is newer.  A failed nvcc build raises with the compiler's output: there is
 no fallback.  Different libraries may be built from several threads at
 once.
 
@@ -81,8 +81,10 @@ def load(name: str, src: Optional[str] = None) -> ctypes.CDLL:
             return lib
         src = src or os.path.join(SRC_DIR, f"{name}.cu")
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
-        if (not os.path.exists(so)
-                or os.path.getmtime(so) < os.path.getmtime(src)):
+        headers = [os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                   if f.endswith(".h")]
+        if (not os.path.exists(so) or os.path.getmtime(so)
+                < max(map(os.path.getmtime, [src, *headers]))):
             _compile(name, src, so)
         lib = ctypes.CDLL(so)
         lib.hypo_cuda_error_string.restype = ctypes.c_char_p

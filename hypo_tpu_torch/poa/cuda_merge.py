@@ -1,8 +1,12 @@
 """Kernel 5: the merge of one aligned arm into every window's graph, in
 place (csrc/poa_merge.cu), replacing the XLA code of
 hypo_tpu/poa/device_full.py:_merge (:309-424) and the state selection of
-its _arm_step_batch (:473-483): one block per window, one thread per arm
-base (the source's header says how).
+its _arm_step_batch (:473-483): a group of warps a window, several
+windows a block, the window's col_pos row and its bases' predecessor
+slots staged in shared memory (the source's header says how).  The
+source picks its launch from (N, L) (csrc/poa_merge_launch.h:
+merge_shape) and refuses L > 512 or a window past 48 KB of shared
+memory; ``launch_shape`` asks the built library which launch that is.
 
 ``merge_arm`` updates the state it is given and returns it.  For tensors
 on the CPU it computes the plain version (poa.device_full._merge_step)
@@ -13,13 +17,22 @@ in a CUDA graph at each replay: _build.count_launch).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from . import NCODES
 
-_SMEM_BYTES = 48 * 1024
+
+class Shape(NamedTuple):
+    """A launch of kernel 5 (csrc/poa_merge_launch.h: Shape)."""
+    per: int       # arm bases a thread
+    warps: int     # warps a window: the fewest that cover L
+    windows: int   # windows a block
+    threads: int   # threads a block
+    smem: int      # dynamic shared bytes a block
+    ok: bool       # whether the kernel takes it
 
 
 def _load():
@@ -28,13 +41,24 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.hypo_poa_merge.restype = ci
         lib.hypo_poa_merge.argtypes = [vp] * 18 + [ci] * 4 + [vp]
+        lib.hypo_poa_merge_shape.restype = ci
+        lib.hypo_poa_merge_shape.argtypes = [ci, ci,
+                                             ctypes.POINTER(ctypes.c_int)]
         lib._typed = True
     return lib
 
 
+def launch_shape(N: int, L: int) -> Shape:
+    """The launch ``hypo_poa_merge`` makes at (N, L), from the built
+    library (so only where nvcc is)."""
+    out = (ctypes.c_int * 5)()
+    ok = _load().hypo_poa_merge_shape(N, L, out)
+    return Shape(*out, bool(ok))
+
+
 def smem_bytes(N: int, L: int) -> int:
-    """Shared memory of one block (csrc/poa_merge.cu: smem_ints)."""
-    return 4 * (((N + 1 + L + 3) & ~3) + 4 * 32)
+    """Shared memory of one block of the launch at (N, L)."""
+    return launch_shape(N, L).smem
 
 
 def merge_arm(st, node_col_r, matched, arm, arm_len, w, active, *, N: int,
@@ -74,10 +98,6 @@ def merge_arm(st, node_col_r, matched, arm, arm_len, w, active, *, N: int,
         return st
     if dev.type != "cuda":
         raise ValueError(f"merge_arm: no kernel for device {dev}")
-    if L > 1024 or smem_bytes(N, L) > _SMEM_BYTES:
-        raise ValueError(f"merge_arm: the kernel needs L <= 1024 and "
-                         f"{smem_bytes(N, L)} <= {_SMEM_BYTES} B of shared "
-                         f"memory (N={N}, L={L})")
     lib = _load()
     p = _build.ptr
     with torch.cuda.device(dev):
@@ -85,7 +105,7 @@ def merge_arm(st, node_col_r, matched, arm, arm_len, w, active, *, N: int,
         rc = lib.hypo_poa_merge(
             *map(p, st), p(node_col_r), p(matched), p(arm), p(arm_len),
             p(w), p(active), B, N, L, P, ctypes.c_void_p(stream))
-    _build.check(lib, rc, "merge_arm launch")
+    _build.check(lib, rc, f"merge_arm launch at N={N}, L={L}")
     _build.count_launch(merge_arm)
     return st
 

@@ -78,26 +78,30 @@ def event_ms(fn: Callable[[], object], dev: torch.device, reps: int = 5,
 
 
 def profiled_ms(fn: Callable[[], object], dev: torch.device,
-                calls: int = 10) -> Tuple[Optional[float], Optional[float]]:
+                calls: int = 10, tries: int = 3
+                ) -> Tuple[Optional[float], Optional[float]]:
     """(device ms per call, device kernels and copies per call) of fn()
     under torch.profiler (CUDA activity only), after one warm-up call:
     the summed durations of the device activities that ``calls`` calls
-    launch, over the calls.  (None, None) off the card; raises if the
-    profiler saw no device activity."""
+    launch, over the calls.  (None, None) off the card; raises if
+    ``tries`` traces in a row saw no device activity (the profiler's
+    device activity is sometimes lost, so one empty trace is retried)."""
     if dev.type != "cuda":
         return None, None
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        sync(dev)
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        raise RuntimeError("torch.profiler saw no device activity")
-    return sum(spans) / 1e3 / calls, len(spans) / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            sync(dev)
+        spans = [e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / 1e3 / calls, len(spans) / calls
+    raise RuntimeError("torch.profiler saw no device activity")
 
 
 def fmt(x: Optional[float], digits: int = 4) -> str:

@@ -13,12 +13,16 @@ and mid-run states with a third of the windows emptied (n_nodes == 0)
 or half of them inactive; arm weights are 1-3.  The same states hold the
 two facts that make kernel 4's counting equal to the sort (the valid
 columns' positions are a permutation, col_node lists exactly the nodes
-of each column) and the one that makes kernel 5's targets unique (an
-alignment visits a rank at most once, in increasing order).  Inputs
+of each column), the one that makes kernel 5's targets unique (an
+alignment visits a rank at most once, in increasing order) and the one
+its column shifts rest on (the insertions' anchors are non-decreasing
+in j).  Kernel 5's launch, from its source's launch header built with
+g++, fits the card at every shape the runners launch.  Inputs
 come from numpy seeds and every compared value is an integer:
 tolerance 0.  Card-only cases carry the ``cuda`` marker.
 """
 import functools
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +35,7 @@ from hypo_tpu_torch import _build
 from hypo_tpu_torch.poa import cuda_merge, cuda_rank
 from hypo_tpu_torch.poa import device_full as TF
 from hypo_tpu_torch.state import state_from_numpy, state_to_numpy
+from hypo_tpu_torch.poa.full_runner import _CPU_TILE_B, CLASSES
 from test_torch_device_full import SC, jax_arm_steps, tile_inputs
 
 CPU = torch.device("cpu")
@@ -283,10 +288,107 @@ def test_states_hold_what_the_kernels_rely_on(case):
             for c, k in zip(*np.nonzero(cn[:nc] >= 0)):
                 assert s["node_code"][b, cn[c, k]] == k
         assert (s["n_nodes"] <= N).all() and (s["n_cols"] <= N).all()
-    for _st, _inp, _ra, matched in merge_cases(case):
+    for st, inp, ra, matched in merge_cases(case):
         for row in matched:
             hit = row[row >= 0]
             assert (np.diff(hit) > 0).all()
+        for anchors in merge_anchors(st, inp, ra, matched):
+            assert (np.diff(anchors) >= 0).all()
+
+
+def merge_anchors(st, inp, ra, matched):
+    """Per window: the anchor of each inserted base in order of j (the
+    running maximum of the matched bases' column positions, -1 before
+    the first), as _merge computes it; matched positions strictly rise."""
+    arm_len = inp[1]
+    nn = np.asarray(st.n_nodes)
+    col_pos = np.asarray(st.col_pos)
+    ncr = np.asarray(ra.node_col_r)
+    for b, row in enumerate(matched):
+        m = row[:max(int(arm_len[b]), 0)] if nn[b] > 0 else []
+        pos = [int(col_pos[b, ncr[b, r]]) for r in m if r >= 0]
+        assert (np.diff(pos) > 0).all()
+        last, anchors = -1, []
+        for r in m:
+            if r >= 0:
+                last = max(last, int(col_pos[b, ncr[b, r]]))
+            else:
+                anchors.append(last)
+        if nn[b] == 0:
+            anchors = [-1] * max(int(arm_len[b]), 0)
+        yield np.array(anchors, np.int64)
+
+
+# (N, L, B) of every merge the runners launch: each class at its tile and
+# split over two device blocks, and the CPU tile (B = 64) over 1, 2 and 8
+# devices
+RUNNER_SHAPES = sorted({(N, L, B) for L, N, _K, tile_b, _A in CLASSES
+                        for B in (tile_b, tile_b // 2)}
+                       | {(N, L, _CPU_TILE_B // nd) for L, N, *_ in CLASSES
+                          for nd in (1, 2, 8)})
+
+
+LAUNCH_MAIN = r"""
+#include <cstdio>
+#include <cstdlib>
+#include "poa_merge_launch.h"
+int main(int argc, char** argv) {
+  for (int i = 1; i + 2 < argc; i += 3) {
+    const int N = atoi(argv[i]), L = atoi(argv[i + 1]), B = atoi(argv[i + 2]);
+    const merge_launch::Shape s = merge_launch::merge_shape(N, L);
+    printf("%d %d %d %d %lld %d %d\n", s.per, s.warps, s.windows,
+           merge_launch::threads(s), merge_launch::smem_bytes(s, N, L),
+           merge_launch::shape_ok(s, N, L), merge_launch::blocks(s, B));
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def merge_launch(tmp_path_factory):
+    """(N, L, B) -> the launch kernel 5's source makes there (per, warps,
+    windows, threads, shared bytes, taken, blocks): its launch header,
+    csrc/poa_merge_launch.h, built with g++ (no CUDA in it)."""
+    d = tmp_path_factory.mktemp("merge_launch")
+    (d / "main.cpp").write_text(LAUNCH_MAIN)
+    subprocess.run(["g++", "-std=c++17", f"-I{_build.SRC_DIR}",
+                    str(d / "main.cpp"), "-o", str(d / "launch")],
+                   check=True, capture_output=True, timeout=120)
+
+    def launch(N, L, B):
+        out = subprocess.run([str(d / "launch"), str(N), str(L), str(B)],
+                             check=True, capture_output=True, text=True)
+        return tuple(int(x) for x in out.stdout.split())
+
+    return launch
+
+
+@pytest.mark.parametrize("shape", RUNNER_SHAPES,
+                         ids=[f"N{n}_L{l}_B{b}" for n, l, b in RUNNER_SHAPES])
+def test_merge_launch_shape_fits_the_card(merge_launch, shape):
+    """Kernel 5's launch, as its source picks it, at every shape the
+    runners launch: taken by the kernel, warps covering the arm, at most
+    512 threads a block (the kernel's launch bound, within the card's
+    1024), at most 48 KB of shared memory (the wrapper sets no opt-in),
+    and blocks enough for B windows, the last one not empty."""
+    N, L, B = shape
+    per, warps, windows, threads, smem, ok, blocks = merge_launch(N, L, B)
+    assert ok
+    assert per * 32 * warps >= L
+    assert threads <= 512 <= 1024
+    assert smem <= 48 * 1024
+    assert (blocks - 1) * windows < B <= blocks * windows
+
+
+@pytest.mark.parametrize("N, L", [(1024, 513), (6532, 512), (256, 0)])
+def test_merge_launch_refuses_what_the_kernel_cannot_hold(merge_launch, N,
+                                                          L):
+    """Past L = 512 (16 warps of a base a lane) or 48 KB of shared memory
+    for one window, or with no arm, the source takes no launch (and
+    hypo_poa_merge returns cudaErrorInvalidValue); just inside both
+    limits it does."""
+    assert not merge_launch(N, L, 1)[5]
+    assert merge_launch(min(N, 6528), min(max(L, 1), 512), 1)[5]
 
 
 def test_wrappers_check_their_arguments():
@@ -436,3 +538,120 @@ def test_wrappers_raise_when_the_kernel_cannot_load(cuda_device,
         cuda_merge.merge_arm(st, i(B, N), i(B, L), i(B, L), i(B), i(B),
                              torch.ones(B, dtype=torch.bool,
                                         device=cuda_device), N=N, L=L, P=P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_merge_kernel_matches_plain_on_crafted_cases_on_card(cuda_device,
+                                                             case):
+    """Kernel 5 against _merge_step, every leaf, at every arm step of the
+    crafted cases: both overflow kinds, empty graphs, inactive windows
+    and windows that overflowed at an earlier step."""
+    N, L, P, _how = CASES[case]
+    before = cuda_merge.merge_arm.launches
+    steps = 0
+    for st, inp, ra, matched in merge_cases(case):
+        arm, arm_len, _mode, active, w = inp
+        st_t = state_from_numpy(st, cuda_device)
+        args = tuple(_t(x).to(cuda_device) for x in (
+            ra.node_col_r, matched, arm, arm_len, w)) + (
+            _t(active, torch.bool).to(cuda_device),)
+        want = TF._merge_step(st_t, *args, N=N, L=L, P=P)
+        got = cuda_merge.merge_arm(TF.clone_state(st_t), *args, N=N, L=L,
+                                   P=P)
+        for f, a, b in zip(TF.PoaState._fields, got, want):
+            assert torch.equal(a, b), (f, steps)
+        steps += 1
+    assert cuda_merge.merge_arm.launches == before + steps
+
+
+@functools.lru_cache(maxsize=None)
+def _card_rows(ci):
+    """(the merge's inputs before every arm step of a small tile at class
+    ``ci``'s N and L on the card, N, L): the rows mixed batches draw
+    from."""
+    L, N, _K, _B, _A = CLASSES[ci]
+    tile, _ = tile_inputs(3, (48, 12)[ci], (6, 4)[ci], L, (100, 400)[ci],
+                          0.04, n_wild=2)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    calls = []
+    merge = TF.merge_arm
+
+    def record(st, *args, **kw):
+        calls.append((TF.clone_state(st), tuple(a.clone() for a in args)))
+        return merge(st, *args, **kw)
+
+    TF.merge_arm = record
+    try:
+        TF.run_arm_steps(*tile[:6], N=N, L=L, P=8, device=dev, **SC)
+    finally:
+        TF.merge_arm = merge
+    return calls, N, L
+
+
+def mixed_batch(ci, B, first):
+    """B windows drawn from _card_rows(ci): window i merges, skips or
+    overflows by (i + first) % 3.  A skip is a merging row made inactive,
+    given no arm, or marked overflowed at an earlier step; an overflow
+    is a row that creates a node or a column with n_nodes or n_cols set
+    to N."""
+    calls, N, L = _card_rows(ci)
+    P = 8
+    rows = {"node": [], "col": []}
+    for k, (st, args) in enumerate(calls):
+        after = TF._merge_step(st, *args, N=N, L=L, P=P)
+        live = args[5] & (args[3] > 0) & ~st.ovf & ~after.ovf
+        for b in torch.nonzero(live).flatten().tolist():
+            if after.n_nodes[b] > st.n_nodes[b]:
+                rows["node"].append((k, b))
+            if after.n_cols[b] > st.n_cols[b]:
+                rows["col"].append((k, b))
+    rng = np.random.default_rng(B + first)
+    pick = [rows[("node", "col")[i % 2]] for i in range(B)]
+    src = [p[rng.integers(len(p))] for p in pick]
+    st = TF.PoaState(*(torch.stack([getattr(calls[k][0], f)[b]
+                                    for k, b in src])
+                       for f in TF.PoaState._fields))
+    args = [torch.stack([calls[k][1][a][b] for k, b in src])
+            for a in range(6)]
+    for i in range(B):
+        kind = (i + first) % 3
+        if kind == 1:
+            how = (i // 3) % 3
+            if how == 0:
+                args[5][i] = False
+            elif how == 1:
+                args[3][i] = 0
+            else:
+                st.ovf[i] = True
+        elif kind == 2:
+            field = st.n_nodes if i % 2 == 0 else st.n_cols
+            field[i] = N
+    return st, tuple(args), N, L, P
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 2049])
+@pytest.mark.parametrize("ci", [0, 1])
+def test_merge_kernel_on_ragged_mixed_batches_on_card(cuda_device, ci, B):
+    """Batches of 1, 7 and 2049 windows, none a multiple of the launch's
+    windows a block, each window merging, skipping or overflowing by
+    turns (a block of 4 one-warp windows at class 0 holds all three):
+    kernel 5 equals _merge_step on every leaf.  B = 1 runs each kind."""
+    seen = [0, 0, 0]
+    firsts = (0, 1, 2) if B == 1 else (0,)
+    for first in firsts:
+        st, args, N, L, P = mixed_batch(ci, B, first)
+        want = TF._merge_step(st, *args, N=N, L=L, P=P)
+        got = cuda_merge.merge_arm(TF.clone_state(st), *args, N=N, L=L,
+                                   P=P)
+        for f, a, b in zip(TF.PoaState._fields, got, want):
+            assert torch.equal(a, b), f
+        live = args[5] & (args[3] > 0) & ~st.ovf
+        seen[0] += int((live & ~want.ovf).sum())
+        seen[1] += int((~live).sum())
+        seen[2] += int((live & want.ovf).sum())
+    assert seen == [sum((i + f) % 3 == k for i in range(B) for f in firsts)
+                    for k in range(3)]
+    windows = cuda_merge.launch_shape(N, L).windows
+    assert windows == 1 or B % windows
