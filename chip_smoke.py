@@ -102,19 +102,44 @@ prints its last line):
      (the class-0 arm step's parts, the tile program's step graph,
      which must equal the eager step, and a tile eager and through the
      program's graphs, which must give the same bytes).
+  11. class 1 end to end: a 2 Mbp simulation at 8x short-read coverage
+     (``--short-cov 8``; its weak windows' arms reach class 1) polished
+     with ``-c 8`` by ``hypo_tpu_torch.cli --device-poa`` in this process
+     and by the port's host engine: md5s as in 6, at least two class-1
+     tiles, whose graphs are captured at the class's first dispatch,
+     mid-run (capture seconds and graph memory a class logged), QV
+     before/after;
+  12. the whole-batch entry point ``device_full.poa_full_batch`` on the
+     first tile of each class that phase 11 dispatched, gathered into
+     [B, K, L] at full width (B=2048, N=256, L=126, K=16; B=256, N=1024,
+     L=510, K=16; the pool's int8 codes): inputs unchanged, equal to
+     poa_full_batch on the CPU (int32 codes) on a row subset, every
+     window without overflow equal to ColPoa; times; then each kernel
+     against its plain version and timed, with its bound, on the class-1
+     call's third arm step (the class-1 kernels' first real-tile times);
+  13. the runners' ``fix_long_align_type`` on phase 7's 1 Mbp hybrid
+     simulation, through a Polisher subclass (neither CLI has the
+     option): exact mode (LONG windows' prefix arms LOV and suffix arms
+     ROV on the card), mode full and the port's host engine with the
+     option each write the md5 pinned from hypo_tpu's host engine with
+     it, exact mode's windows equal the host engine's, the default host
+     engine writes phase 7's pin, and some windows differ from its.
 Launch counters count kernels that ran: a launch captured in a graph
 counts at each replay (the capture's eager first call of each part
 counts once), so a path's counts are its arm steps (kernels 1, 3, 5),
 its tiles (kernel 2) and both (kernel 4: each step and each finish),
 plus one of each for every capture.
-Phases 6-9 run the port in this process, every launch counter set to 0
-just before each run and read just after.  Nothing of hypo_tpu or jax
+Phases 6-9, 11 and 13 run the port in this process, and phase 12 its
+first two poa_full_batch calls, every launch counter set to 0 just
+before each run and read just after.  Nothing of hypo_tpu or jax
 is imported or run.  Tolerance everywhere: 0 (every compared value is
 an integer).  A kernel's time is its device time per call under
-torch.profiler; beside it, its time per call between CUDA events over
-back-to-back calls, which also holds the wrapper's host work and is
-that work's time where the kernel is shorter.  A plain version's time
-is the latter (median of REPS samples).
+torch.profiler, checked against CUDA graph replays of back-to-back
+calls (graph_ms), whose time it takes, with a log line, where the two
+differ by more than 1.5x; beside it, its time per call between CUDA
+events over back-to-back calls, which also holds the wrapper's host
+work and is that work's time where the kernel is shorter.  A plain
+version's time is the latter (median of REPS samples).
 
 The last lines are the card (nvidia-smi name, power limit), one JSON
 object describing each kernel, and
@@ -196,11 +221,12 @@ def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
 
 
 def traced_ms(fn, only=None, tries: int = 3):
-    """The summed durations of the device kernels that KERNEL_INNER *
+    """(the summed durations of the device kernels that KERNEL_INNER *
     REPS calls of fn() launch under torch.profiler (CUDA activity only;
     with ``only``, just the kernels whose name holds it), over the calls,
-    after one warm-up; None when ``tries`` traces in a row held no such
-    kernel (the profiler's device activity is sometimes lost)."""
+    after one warm-up; the number of those kernels in the trace), or
+    None when ``tries`` traces in a row held no such kernel (the
+    profiler's device activity is sometimes lost)."""
     from torch.profiler import ProfilerActivity, profile
     calls = KERNEL_INNER * REPS
     fn()
@@ -215,26 +241,68 @@ def traced_ms(fn, only=None, tries: int = 3):
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and (only is None or only in e.name)]
         if spans:
-            return sum(spans) / 1e3 / calls
+            return sum(spans) / 1e3 / calls, len(spans)
     return None
 
 
 def kernel_ms(fn, only=None, less=None) -> tuple:
     """(device ms, call ms) per call of a kernel wrapper fn(): traced_ms's
-    device time, and cuda_ms's time per call.  The call time also holds
-    the wrapper's host work (argument checks, allocation, the ctypes
-    launch), and is that work's time where the kernel is shorter.  Where
-    the profiler saw no kernel, the device time is the call time, less
-    cuda_ms of ``less`` (the work fn does around the kernel), and a line
+    device time, checked against graph_ms's (fn's less that of ``less``,
+    the work fn does around the kernel), and cuda_ms's time per call.
+    The call time also holds the wrapper's host work (argument checks,
+    allocation, the ctypes launch), and is that work's time where the
+    kernel is shorter.  Where the profiler saw no kernel, or its time
+    and the graph replays' differ by more than 1.5x (its device times
+    have read 3-5x low in some runs of this script, even below the
+    kernel's bound), the device time is the graph replays', and a line
     says so."""
-    ms = traced_ms(fn, only)
+    traced = traced_ms(fn, only)
     call_ms = cuda_ms(fn, inner=KERNEL_INNER)
-    if ms is None:
-        ms = call_ms - (cuda_ms(less, inner=KERNEL_INNER) if less else 0.0)
+    replay_ms = graph_ms(fn) - (graph_ms(less) if less else 0.0)
+    if traced is None:
         log(f"torch.profiler saw no device kernel{f' {only}' if only else ''}"
-            f" in 3 traces: its device time {ms:.4f} ms is from CUDA "
-            f"events (a call{', less the work around it' if less else ''})")
+            f" in 3 traces: its device time {replay_ms:.4f} ms is from CUDA "
+            f"graph replays{', less the work around it' if less else ''}")
+        return replay_ms, call_ms
+    ms, events = traced
+    # a replay time at or below 0 is fn's and ``less``'s noise: no check
+    if replay_ms > 0 and not 2 / 3 < ms / replay_ms < 3 / 2:
+        log(f"torch.profiler's device time {ms:.4f} ms ({events} kernels in "
+            f"the trace of {KERNEL_INNER * REPS} calls) differs from the "
+            f"CUDA graph replays' {replay_ms:.4f} ms by more than 1.5x: the "
+            f"device time is the replays'")
+        ms = replay_ms
     return ms, call_ms
+
+
+def graph_ms(fn, calls: int = 20, reps: int = REPS) -> float:
+    """Milliseconds a call of fn() from replays of one CUDA graph that
+    holds ``calls`` back-to-back calls (captured after one eager call on
+    the capture stream): the device's time a call with no host work
+    between the kernels (median of ``reps`` replays between CUDA
+    events).  A launch captured here is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e) / calls)
+    return float(np.median(ts))
 
 
 def launch_counts() -> dict:
@@ -1282,30 +1350,37 @@ def _md5(path: str) -> str:
 
 
 def simulate(tmp: str, name: str, genome_size: int, hybrid: bool,
-             contigs: int = 1):
-    """A hypo_tpu_torch.sim dataset (seed 1, 30x short reads, in
-    ``contigs`` contigs; hybrid: 25x long reads and short-read dropout
+             contigs: int = 1, short_cov: int = 30):
+    """A hypo_tpu_torch.sim dataset (seed 1, ``short_cov``x short reads,
+    in ``contigs`` contigs; hybrid: 25x long reads and short-read dropout
     over [0.30, 0.33) of the genome, the hybrid recipe of SCALE.md) and
-    the polishing arguments that read it (``-B lr.bam`` when hybrid)."""
+    the polishing arguments that read it (polish_args)."""
     sim = os.path.join(tmp, name)
     extra = ["--long-cov", "25", "--dropout", "0.30,0.33"] if hybrid else []
     if contigs > 1:
         extra += ["--num-contigs", str(contigs)]
     t0 = time.time()
     subprocess.run([sys.executable, "-m", "hypo_tpu_torch.sim", "--out", sim,
-                    "--genome-size", str(genome_size), "--short-cov", "30",
-                    *extra, "--seed", "1"], cwd=HERE,
+                    "--genome-size", str(genome_size), "--short-cov",
+                    str(short_cov), *extra, "--seed", "1"], cwd=HERE,
                    env=dict(os.environ, PYTHONPATH=HERE), check=True,
                    capture_output=True)
     log(f"sim {name}: {genome_size / 1e6:g} Mbp in {contigs} contig(s), "
-        f"30x short{', 25x long' if hybrid else ''}: "
+        f"{short_cov}x short{', 25x long' if hybrid else ''}: "
         f"{time.time() - t0:.1f} s")
+    return sim, polish_args(sim, genome_size, hybrid, short_cov)
+
+
+def polish_args(sim: str, genome_size: int, hybrid: bool,
+                short_cov: int = 30):
+    """The polishing arguments that read simulation ``sim`` (``-c`` its
+    short-read coverage; ``-B lr.bam`` when hybrid)."""
     common = ["-r", f"{sim}/reads.fq.gz", "-d", f"{sim}/draft.fa",
-              "-b", f"{sim}/sr.bam", "-c", "30", "-s", str(genome_size),
-              "-t", str(os.cpu_count() or 1)]
+              "-b", f"{sim}/sr.bam", "-c", str(short_cov), "-s",
+              str(genome_size), "-t", str(os.cpu_count() or 1)]
     if hybrid:
         common += ["-B", f"{sim}/lr.bam"]
-    return sim, common
+    return common
 
 
 def stage_times(text: str):
@@ -1314,14 +1389,18 @@ def stage_times(text: str):
     return int(mp.group(1)), float(mp.group(2)), float(mt.group(1))
 
 
-def run_port(argv, no_native: bool = False, device=None, ndev=None):
+def run_port(argv, no_native: bool = False, device=None, ndev=None,
+             polisher=None):
     """``hypo_tpu_torch.cli`` in this process, every kernel launch counter
     set to 0 just before and read just after; ``no_native`` sets
     HYPO_TPU_NO_NATIVE=1 for the run, ``ndev`` HYPO_POA_NDEV; a
     ``device`` (or list of devices) polishes through
-    ``pipeline.polish.polish(flags, device)`` instead of cli.run.
-    Returns (stats, launches, (windows, POA seconds, total seconds),
-    wall seconds)."""
+    ``pipeline.polish.polish(flags, device)`` instead of cli.run, and a
+    ``polisher`` (a pipeline.polish.Polisher subclass) through
+    ``polisher(flags, device).polish()``.  Returns (the device runner's
+    stats, or {} for --no-device-poa, launches, (windows, POA seconds,
+    total seconds), wall seconds); the Polisher stays in
+    ``run_port.last``."""
     from hypo_tpu_torch import cli
     from hypo_tpu_torch.pipeline.polish import polish
     for wrappers in COUNTERS.values():
@@ -1336,12 +1415,15 @@ def run_port(argv, no_native: bool = False, device=None, ndev=None):
         os.environ["HYPO_POA_NDEV"] = str(ndev)
     t0 = time.time()
     try:
-        if device is None:
+        flags = lambda: cli.flags_from_args(  # noqa: E731
+            cli.build_parser().parse_args(argv))
+        if polisher is not None:
+            polisher = polisher(flags(), device)
+            polisher.polish()
+        elif device is None:
             polisher = cli.run(argv)
         else:
-            polisher = polish(
-                cli.flags_from_args(cli.build_parser().parse_args(argv)),
-                device)
+            polisher = polish(flags(), device)
         torch.cuda.synchronize()
     finally:
         sys.stderr = old
@@ -1350,7 +1432,9 @@ def run_port(argv, no_native: bool = False, device=None, ndev=None):
             os.environ.pop("HYPO_POA_NDEV", None)
     wall = time.time() - t0
     launches = launch_counts()
-    return (polisher.device_runner.stats, launches,
+    run_port.last = polisher
+    runner = polisher.device_runner      # None for the CLI's host engine
+    return (runner.stats if runner is not None else {}, launches,
             stage_times(buf.getvalue()), wall)
 
 
@@ -1408,13 +1492,21 @@ def log_tiles(what: str, stats: dict) -> None:
 PINNED_MD5 = {"sim_4m": "db85bbe32c2b4637f6e6a5e933e5c498",
               "sim_4m_4c": "0ee822b6c4de06d42b6826c98721247c",
               "sim_hybrid": "2989f8d282e631eb5c6307e062eef83d",
-              "sim_no_native": "11375dabd37edd4de899aeba20f8d588"}
+              "sim_no_native": "11375dabd37edd4de899aeba20f8d588",
+              # -c 8: python -m hypo_tpu.cli ... -c 8 --no-device-poa
+              "sim_2m_8x": "c4be59285044e2012ead5ff5cd715189",
+              # sim_hybrid with fix_long_align_type on: hypo_tpu's
+              # pipeline.polish.Polisher whose runner is
+              # HostTileRunner(sp, fix_long_align_type=True) (neither
+              # CLI has the option)
+              "sim_hybrid_fixlong": "97b8b3b8d3858f8c1f32d809549ac841"}
 
 
-def same_md5(what: str, sim: str, port: str, host: str) -> None:
+def same_md5(what: str, sim: str, port: str, host: str,
+             key: str = None) -> None:
     """The port's device run and its host engine both write the FASTA
-    pinned for ``sim``."""
-    pin = PINNED_MD5[os.path.basename(sim)]
+    pinned for ``sim`` (or under ``key``)."""
+    pin = PINNED_MD5[key or os.path.basename(sim)]
     log(f"{what} md5: port {port} host engine {host} pinned {pin}")
     if port != pin or host != pin:
         raise RuntimeError(f"{what}: FASTA differs from the pinned md5")
@@ -1699,6 +1791,369 @@ def phase_tools(tmp: str) -> None:
                            "equal to the eager step and tile")
 
 
+# -- 11. class 1 end to end -----------------------------------------------------
+
+def phase_class1(tmp: str, genome_size: int = 2_000_000) -> tuple:
+    """A 2 Mbp simulation at 8x short-read coverage, whose weak windows
+    reach tile class 1 (low coverage leaves long gaps between solid
+    k-mers, so long arms), polished in mode full by the port (every
+    kernel launch counted; the class-1 graphs captured at the class's
+    first dispatch, mid-run, behind class-0 tiles already queued) and by
+    its host engine: both FASTAs equal the pin, at least two class-1
+    tiles ran, QV after is above QV before.  Returns (launches, the
+    first tile of each class as the runner packed it)."""
+    from hypo_tpu_torch.poa.full_runner import FullDeviceRunner
+    sim, common = simulate(tmp, "sim_2m_8x", genome_size, hybrid=False,
+                           short_cov=8)
+    out = os.path.join(tmp, "torch_2m_8x.fa")
+    first = {}
+    dispatch = FullDeviceRunner._dispatch
+
+    def keep_first(self, ci, scores, arrays):
+        if ci not in first:
+            first[ci] = tuple(np.array(a) for a in arrays)
+        return dispatch(self, ci, scores, arrays)
+
+    FullDeviceRunner._dispatch = keep_first
+    try:
+        stats, launches, times, wall = run_port(
+            common + ["-o", out, "--device-poa"])
+    finally:
+        FullDeviceRunner._dispatch = dispatch
+    runner = run_port.last.device_runner
+    md5_host, host_times = run_host(common, os.path.join(tmp,
+                                                         "host_2m_8x.fa"))
+    log_times("class 1 e2e port (--device-poa, -c 8)", times, wall)
+    log_tiles("class 1 e2e port", stats)
+    log_times("class 1 e2e host engine (--no-device-poa)", host_times)
+    for ci, n in enumerate(stats["class_tiles"]):
+        prog = runner._programs[(ci, runner.short_scores)]
+        when = "by the warm-up thread" if ci == 0 else "at its first dispatch"
+        for d, block in enumerate(prog.blocks or []):
+            cap = block.capture_stats
+            if cap is None:         # a block that never ran, or off the card
+                continue
+            log(f"class {ci} ({n} tiles) graphs of block {d}, captured "
+                f"{when}: {cap['seconds']:.3f} s, memory reserved "
+                f"{cap['reserved_before'] / 2**20:.0f} -> "
+                f"{cap['reserved_after'] / 2**20:.0f} MiB")
+    if stats["class_tiles"][1] < 2:
+        raise RuntimeError(f"class 1 e2e: {stats['class_tiles'][1]} class-1 "
+                           f"tiles, at least 2 expected")
+    check_qv("class 1 e2e", sim, out)
+    same_md5("class 1 e2e", sim, _md5(out), md5_host)
+    check_launches("class 1 e2e (full mode, 2 Mbp at 8x)", launches, KERNELS)
+    return launches, first
+
+
+# -- 12. poa_full_batch on real tiles ---------------------------------------
+
+def gather_arms(tile):
+    """poa_full_batch's inputs from a tile as the runner packed it: arm k
+    of window b is pool row idx[b, k] (the pool's int8 codes, plen long),
+    none where idx is -1; the tile's weights are dropped (every arm of
+    poa_full_batch weighs 1)."""
+    pool, plen, idx, amode, _aw, narms = tile[:6]
+    ok = idx >= 0
+    rows = np.where(ok, idx, 0)
+    arms = np.where(ok[:, :, None], pool[rows], 0).astype(np.int8)
+    alen = np.where(ok, plen[rows], 0).astype(np.int32)
+    return arms, alen, amode.astype(np.int32), narms.astype(np.int32)
+
+
+class AtStep:
+    """Within ``with``, device_full's kernel wrappers wrapped to keep the
+    inputs of arm step ``at`` (the rank's, the DP's, the walk's and the
+    merge's, the state cloned before that merge) and of the last rank
+    (the finish's)."""
+    NAMES = ("rank_arrays", "poa_dp_batch", "_traceback_matched_batch",
+             "merge_arm")
+
+    def __init__(self, at: int = 2):
+        self.at = at
+        self.kept = {}
+        self.count = dict.fromkeys(self.NAMES, 0)
+
+    def __enter__(self):
+        self.orig = {n: getattr(TF, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(TF, n, functools.partial(self._call, n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(TF, n, fn)
+
+    def _call(self, name, *args, **kw):
+        if self.count[name] == self.at:
+            st = TF.clone_state(args[0]) if name == "merge_arm" else args[0]
+            self.kept[name] = ((st,) + args[1:], kw)
+        self.count[name] += 1
+        if name == "rank_arrays":
+            self.kept["rank_last"] = (args, kw)
+        return self.orig[name](*args, **kw)
+
+
+def real_tile_kernels(name, kept, N, L, P) -> dict:
+    """Each kernel on the inputs AtStep kept from a real tile: equal to its
+    plain version (one call), its device and call times, its bound on
+    these inputs.  The plain versions' times are the synthetic tile's
+    (phases 3-4)."""
+    res = {}
+    (st, *margs), mkw = kept["merge_arm"]
+    B = st.n_nodes.numel()
+    step = f"arm step {AtStep().at}"
+
+    def record(key, what, fn, err, bd, only=None, less=None, extra="",
+               where=step):
+        if err:
+            raise RuntimeError(f"{name}: {what} kernel != plain (max |diff| "
+                               f"{err})")
+        ms, call_ms = kernel_ms(fn, only, less)
+        res[key] = dict(ms=ms, call_ms=call_ms, plain_ms=None,
+                        max_abs_err=err, bound_ms=bd["bound_ms"],
+                        bound_by=bd["bound_by"])
+        log(f"{name} {what} B={B} N={N} L={L} P={P} at {where}: equal to "
+            f"plain; kernel {ms:.4f} ms ({call_ms:.4f} ms a call); bound "
+            f"{bd['bound_ms']:.5f} ms by {bd['bound_by']} "
+            f"({bd['bytes'] / 1e6:.2f} MB): {bd['bound_ms'] / ms:.4f} of it"
+            + extra)
+
+    dargs, dkw = kept["poa_dp_batch"]
+    err = dp_diff(poa_dp_batch(*dargs, **dkw), poa_dp_batch_ref(*dargs, **dkw),
+                  dargs[4], N)
+    nodes = int(dargs[4].sum())
+    record("poa_dp", "DP", lambda: poa_dp_batch(*dargs, **dkw), err,
+           dp_bound(dargs, N, L, P), extra=f"; {nodes} rows")
+    (bp, pred_rows, arm_len, mode, max_row), wkw = kept[
+        "_traceback_matched_batch"]
+    targs = (bp, pred_rows, arm_len, mode, max_row, wkw["active"])
+    err = leaf_diff(poa_tb_matched(*targs, N=N, L=L, P=P),
+                    poa_tb_matched_ref(*targs, N=N, L=L, P=P))
+    steps = poa_tb_batch(bp, pred_rows, max_row, arm_len, mode, N=N, L=L,
+                         P=P)[2]
+    record("poa_tb", "tile walk",
+           lambda: poa_tb_matched(*targs, N=N, L=L, P=P), err,
+           tb_bound(torch.where(wkw["active"], steps, 0), N, L,
+                    matched=True))
+    final = kept["rank_last"][0][0]
+    for label, state, leaves in (("step", st, STEP_LEAVES),
+                                 ("finish", final, CONS_LEAVES)):
+        want = TF._rank_arrays_batch(state, N)
+        got = rank_arrays(state, N, leaves)
+        err = max(leaf_diff(a, b) for f, a, b in zip(cuda_rank.FIELDS, got,
+                                                     want) if f in leaves)
+        record(f"poa_rank_{label}", f"rank ({label}'s leaves)",
+               lambda: rank_arrays(state, N, leaves), err,
+               rank_bound(state, N, P, leaves),
+               where=step if label == "step" else "the finish")
+    want = TF._merge_step(st, *margs, **mkw)
+    err = max(leaf_diff(a, b) for a, b in zip(
+        merge_arm(TF.clone_state(st), *margs, **mkw), want))
+    work = TF.clone_state(st)
+
+    def restore():
+        for dst, src in zip(work, st):
+            dst.copy_(src)
+
+    def merge_once():
+        restore()
+        merge_arm(work, *margs, **mkw)
+
+    record("poa_merge", "merge", merge_once, err,
+           merge_bound(st, want, margs, L, P), only="poa_merge_kernel",
+           less=restore, extra=" (a call's time holds the state's restore)")
+    ra = TF._rank_arrays_batch(final, N)
+    cargs = (ra.pred_ranks, ra.pred_w_r, ra.pred_cnt_r, ra.is_end_r,
+             ra.node_code_r, ra.node_sup_r, final.n_nodes,
+             ra.rank_of[:, 0].contiguous())
+    err = max(leaf_diff(a, b) for a, b in zip(
+        heaviest_bundle(*cargs, N=N, P=P),
+        TF._consensus_wavefront(*cargs, N=N, P=P)))
+    record("consensus", "consensus",
+           lambda: heaviest_bundle(*cargs, N=N, P=P), err,
+           cons_bound(cargs, N, P), where="the finish")
+    return res
+
+
+def phase_full_batch(dev, tiles) -> tuple:
+    """The whole-batch entry point device_full.poa_full_batch (kernels 4,
+    1, 3, 5 a step for all K = 16 steps, then 4 and 2) on phase 11's
+    first tile of each class, gathered into [B, K, L] at full width
+    (class 0: B = 2048, N = 256, L = 126; class 1: B = 256, N = 1024,
+    L = 510), int8 codes: the inputs on the card unchanged; equal to
+    poa_full_batch on the CPU (the plain versions, int32 codes) on a row
+    subset; every window with arms and without overflow equal to the
+    NumPy spec ColPoa; the first call's and a warm call's times.  Then
+    each kernel on the class-1 call's third arm step (AtStep): the first
+    times of the class-1 kernels on a real tile.  Returns (launches of
+    the two first calls, those kernels' results)."""
+    from hypo_tpu_torch.poa.full_runner import CLASSES, P_FULL
+    for wrappers in COUNTERS.values():
+        for w in wrappers:
+            w.launches = 0
+    runs = {}
+    for ci in sorted(tiles):
+        L, N = CLASSES[ci][:2]
+        B, K = tiles[ci][2].shape
+        kw = dict(K=K, P=P_FULL, **SCORES)
+        x = gather_arms(tiles[ci])
+        given = [torch.from_numpy(a).to(dev) for a in x]
+        before = [t.clone() for t in given]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = TF.poa_full_batch(*given, N=N, L=L, **kw)
+        torch.cuda.synchronize()
+        runs[ci] = (x, given, out, time.perf_counter() - t0, kw)
+        if not all(torch.equal(a, b) for a, b in zip(given, before)):
+            raise RuntimeError(f"poa_full_batch class {ci}: an input on the "
+                               f"card changed")
+    launches = launch_counts()
+    check_launches("poa_full_batch (one call a class)", launches, KERNELS)
+    real = {}
+    # one pool of ColPoa workers for both classes
+    with multiprocessing.get_context("spawn").Pool(os.cpu_count() or 1) \
+            as workers:
+        for ci, (x, given, out, first_s, kw) in runs.items():
+            L, N = CLASSES[ci][:2]
+            B, K = x[1].shape
+            ms = cuda_ms(lambda: TF.poa_full_batch(*given, N=N, L=L, **kw),
+                         reps=3)
+            sub = np.arange(0, B, max(1, B // (64, 16)[ci]))
+            t0 = time.perf_counter()
+            ref = TF.poa_full_batch(*(a[sub].astype(np.int32) for a in x),
+                                    N=N, L=L, device="cpu", **kw)
+            cpu_s = time.perf_counter() - t0
+            cc, cs, cl, ovf = (t.cpu().numpy() for t in out)
+            for f, a, b in zip(("codes", "supports", "lengths", "ovf"), out,
+                               ref):
+                if a.dtype != b.dtype or not torch.equal(a[sub].cpu(), b):
+                    raise RuntimeError(f"poa_full_batch class {ci}: {f} on "
+                                       f"the card != the CPU's on rows "
+                                       f"{sub.tolist()}")
+            arms, alen, amode, narms = x
+            ok = [b for b in range(B) if narms[b] > 0 and not ovf[b]]
+            specs = [[(arms[b, k, :alen[b, k]].tolist(), int(amode[b, k]), 1)
+                      for k in range(narms[b]) if alen[b, k] > 0]
+                     for b in ok]
+            t0 = time.time()
+            wants = workers.map(spec_consensus, specs, chunksize=8)
+            for b, (want, want_sup) in zip(ok, wants):
+                if (cc[b, :cl[b]].tolist() != want
+                        or cs[b, :cl[b]].tolist() != want_sup):
+                    raise RuntimeError(f"poa_full_batch class {ci} window {b}"
+                                       f" != ColPoa spec")
+            log(f"poa_full_batch class {ci} B={B} N={N} L={L} K={K} (phase "
+                f"11's first class-{ci} tile, {int((narms > 0).sum())} "
+                f"windows with arms, arm steps {int(narms.max())}): inputs "
+                f"unchanged; rows {len(sub)} equal the CPU's ({cpu_s:.1f} s "
+                f"there); all {len(ok)} windows without overflow equal ColPoa "
+                f"({int(ovf.sum())} overflowed; spec {time.time() - t0:.1f} "
+                f"s); first call {first_s * 1e3:.2f} ms, warm {ms:.2f} ms a "
+                f"call (CUDA events, {K} steps and the finish)")
+            if ci == 1:
+                with AtStep() as rec:
+                    TF.poa_full_batch(*given, N=N, L=L, **kw)
+                real = real_tile_kernels("class-1 real tile", rec.kept, N, L,
+                                         kw["P"])
+    return launches, real
+
+
+# -- 13. exact mode with fix_long_align_type --------------------------------------
+
+def fix_long_polisher():
+    """A pipeline.polish.Polisher subclass whose runner has
+    fix_long_align_type on: exact mode's DeviceConsensusRunner, mode
+    full's FullDeviceRunner (the option reaches its host engine, which
+    takes the LONG windows), or without --device-poa the host engine
+    (HostTileRunner, which the polisher builds in that case)."""
+    from hypo_tpu_torch.pipeline.polish import Polisher, cuda_device
+    from hypo_tpu_torch.poa.batch import DeviceConsensusRunner
+    from hypo_tpu_torch.poa.full_runner import FullDeviceRunner
+    from hypo_tpu_torch.poa.host_runner import HostTileRunner
+
+    class FixLong(Polisher):
+        def _make_device_runner(self):
+            f = self.flags
+            if not f.use_device_poa:
+                return HostTileRunner(f.score_params, fix_long_align_type=True,
+                                      threads=f.threads)
+            full = f.device_poa_mode == "full"
+            cls = FullDeviceRunner if full else DeviceConsensusRunner
+            cls.check_scores(f.score_params, long_reads=not self.no_long_reads)
+            dev = self.device if self.device is not None else cuda_device()
+            runner = (FullDeviceRunner(f.score_params, dev, f.threads,
+                                       fix_long_align_type=True) if full
+                      else DeviceConsensusRunner(f.score_params, dev,
+                                                 fix_long_align_type=True))
+            runner.warm()
+            return runner
+
+    return FixLong
+
+
+def window_consensus(polisher) -> list:
+    return [(w.wtype, w.consensus) for c in polisher.contigs
+            for w in c.windows if w is not None]
+
+
+def phase_exact_fixlong(tmp: str, genome_size: int = 1_000_000) -> tuple:
+    """fix_long_align_type on phase 7's 1 Mbp hybrid simulation (LONG
+    windows with prefix and suffix arms): exact mode (LONG windows on the
+    card, their prefix arms LOV and suffix arms ROV at the long-read
+    scores) and mode full (they go to the host engine) with the option,
+    and the port's host engine with it, all in this process: every FASTA
+    equals the pin from hypo_tpu's host engine with the option, and
+    exact mode's windows equal the host engine's one by one; the port's
+    default host engine writes phase 7's pin, and some windows differ
+    from its (else the option was not exercised)."""
+    sim = os.path.join(tmp, "sim_hybrid")
+    common = polish_args(sim, genome_size, hybrid=True)
+    fix = fix_long_polisher()
+    runs = {}
+    for name, cls, extra in (
+            ("default host engine", None, ["--no-device-poa"]),
+            ("host engine", fix, ["--no-device-poa"]),
+            ("exact", fix, ["--device-poa", "--device-poa-mode", "exact"]),
+            ("full", fix, ["--device-poa"])):
+        out = os.path.join(tmp, f"fixlong_{name.replace(' ', '_')}.fa")
+        stats, launches, times, wall = run_port(common + ["-o", out] + extra,
+                                                polisher=cls)
+        runs[name] = (_md5(out), window_consensus(run_port.last), launches,
+                      stats)
+        log_times(f"fix_long {name}", times, wall)
+    md5_default, default, _l, _s = runs["default host engine"]
+    md5_host, host, _l, _s = runs["host engine"]
+    md5_exact, exact, exact_launches, stats = runs["exact"]
+    md5_full, full, full_launches, full_stats = runs["full"]
+    log(f"fix_long exact device stats: device rounds "
+        f"{stats['device_rounds']}, device aligns {stats['device_aligns']} "
+        f"(of LONG windows {stats['long_aligns']}), host fallbacks "
+        f"{stats['host_fallbacks']}")
+    log_tiles("fix_long full", full_stats)
+    same_md5("default host engine (no option)", sim, md5_default,
+             md5_default)
+    same_md5("fix_long exact", sim, md5_exact, md5_host,
+             key="sim_hybrid_fixlong")
+    same_md5("fix_long full", sim, md5_full, md5_host,
+             key="sim_hybrid_fixlong")
+    if exact != host or full != host:
+        raise RuntimeError("fix_long: a window's consensus differs between "
+                           "the device runs and the host engine")
+    differ = [w for w, d in zip(exact, default) if w != d]
+    log(f"fix_long: {len(differ)} of {len(exact)} windows differ from the "
+        f"default's ({sum(1 for t, _c in differ if t != 0)} of them LONG; "
+        f"{sum(1 for t, _c in exact if t != 0)} LONG windows in all)")
+    if not differ or stats["long_aligns"] <= 0:
+        raise RuntimeError("fix_long: no window differs from the default's, "
+                           "or no LONG arm went through the card")
+    check_launches("exact with fix_long (1 Mbp hybrid)", exact_launches,
+                   ("poa_dp", "poa_tb"))
+    check_launches("full with fix_long (1 Mbp hybrid)", full_launches,
+                   KERNELS)
+    return exact_launches, full_launches
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1739,6 +2194,10 @@ def main() -> None:
         paths["sharded_2rank_4mbp"], paths["split_2dev_4mbp"] = \
             phase_sharded(tmp)
         phase_tools(tmp)
+        paths["full_2mbp_8x"], first_tiles = phase_class1(tmp)
+        paths["full_batch"], real = phase_full_batch(dev, first_tiles)
+        paths["exact_fixlong_1mbp_hybrid"], \
+            paths["full_fixlong_1mbp_hybrid"] = phase_exact_fixlong(tmp)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
     cons = {k: {f: x for f, x in v.items()
@@ -1761,22 +2220,29 @@ def main() -> None:
                     shapes=by_shape,
                     launches_by_path={p: c[key] for p, c in paths.items()})
 
+    # the class-1 real tile's times (phase 12) beside each kernel's shapes
+    real = {k: {"class1_real": v} for k, v in real.items()}
     kernels = [
         entry("poa_dp", "poa_dp", "hypo_tpu/poa/pallas_poa.py:259",
-              "full_4mbp", "class0_multi", {**dp, **exact_dp}),
+              "full_4mbp", "class0_multi",
+              {**dp, **exact_dp, **real["poa_dp"]}),
         entry("poa_tb", "poa_tb",
               "hypo_tpu/poa/jax_poa.py:85-116 and "
               "hypo_tpu/poa/device_full.py:247-307 (XLA, no Pallas kernel)",
-              "full_4mbp", "class0", {**tile_tb, **exact_tb}),
+              "full_4mbp", "class0",
+              {**tile_tb, **exact_tb, **real["poa_tb"]}),
         entry("heaviest_bundle", "consensus",
               "hypo_tpu/poa/pallas_consensus.py:191", "full_4mbp",
-              "class0", cons),
+              "class0", {**cons, **real["consensus"]}),
         entry("poa_rank", "poa_rank",
               "hypo_tpu/poa/device_full.py:144-193 (XLA, no Pallas kernel)",
-              "full_4mbp", "class0_step", tile_rank),
+              "full_4mbp", "class0_step",
+              {**tile_rank,
+               "class1_real_step": real["poa_rank_step"]["class1_real"],
+               "class1_real_finish": real["poa_rank_finish"]["class1_real"]}),
         entry("poa_merge", "poa_merge",
               "hypo_tpu/poa/device_full.py:309-424 (XLA, no Pallas kernel)",
-              "full_4mbp", "class0", tile_merge),
+              "full_4mbp", "class0", {**tile_merge, **real["poa_merge"]}),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -68,7 +68,12 @@ class _Job:
 
 class DeviceConsensusRunner:
     """Exact-mode runner computing on ``device`` (a CUDA device; CPU
-    tensors in tests).  ``stats``: device_rounds (device calls),
+    tensors in tests).  ``fix_long_align_type`` aligns a LONG window's
+    prefix arms LOV and its suffix arms ROV, in both of its rounds (the
+    reference aligns them NW: README, "Reference quirks");
+    ``use_native`` picks the host graphs, NativeGraph or the Python
+    Graph (None: NativeGraph when the native library is available), as
+    in hypo_tpu's runner.  ``stats``: device_rounds (device calls),
     device_aligns (arms aligned on the device), long_aligns (those of
     them from LONG windows) and host_fallbacks (windows finished on the
     host aligner)."""
@@ -76,14 +81,18 @@ class DeviceConsensusRunner:
     # kernels warm() builds
     KERNELS: Tuple[str, ...] = ("poa_dp", "poa_tb")
 
-    def __init__(self, sp: ScoreParams, device):
-        from ..native import available
+    def __init__(self, sp: ScoreParams, device,
+                 fix_long_align_type: bool = False, use_native: bool = None):
         self.sp = sp
         self.device = torch.device(device)
         self.short_scores = (sp.sr_match, sp.sr_mismatch, sp.sr_gap)
         self.long_scores = (sp.lr_match, sp.lr_mismatch, sp.lr_gap)
-        # host graphs: NativeGraph unless HYPO_TPU_NO_NATIVE or no library
-        self.use_native = available()
+        self.fix_long = fix_long_align_type
+        if use_native is None:
+            # NativeGraph unless HYPO_TPU_NO_NATIVE or no library
+            from ..native import available
+            use_native = available()
+        self.use_native = use_native
         self.stats = {"device_rounds": 0, "device_aligns": 0,
                       "long_aligns": 0, "host_fallbacks": 0}
 
@@ -142,8 +151,10 @@ class DeviceConsensusRunner:
 
     def _build_long_job(self, w, backbone: str, kind: str
                         ) -> Optional[_Job]:
-        # every long arm aligns NW: the reference's quirk (README,
-        # "Reference quirks")
+        # by default every long arm aligns NW: the reference's quirk
+        # (README, "Reference quirks")
+        mode_pre = LOV if self.fix_long else NW
+        mode_suf = ROV if self.fix_long else NW
         seqs: List[Tuple[str, int]] = []
         if backbone:
             seqs.append((backbone, NW))
@@ -154,11 +165,11 @@ class DeviceConsensusRunner:
                 arms_added = True
         for a in w.pre_arms:
             if len(a):
-                seqs.append((decode(a), NW))
+                seqs.append((decode(a), mode_pre))
                 arms_added = True
         for a in w.suf_arms:
             if len(a):
-                seqs.append((decode(a), NW))
+                seqs.append((decode(a), mode_suf))
                 arms_added = True
         if not arms_added:
             w.consensus = decode(w.draft)

@@ -32,7 +32,10 @@ does (device_full.py:733-779), and runs a tile on each block's fixed
 buffers as begin, step x kmax, finish: on a CUDA device as replays of
 three CUDA graphs, where the JAX package runs one jitted program.
 ``run_arm_steps`` and ``run_tile_eager``, the same steps as eager
-launches, are its plain reference.
+launches, are its plain reference.  ``poa_full_batch`` is the JAX
+package's whole-batch entry point: K eager arm steps of weight 1 on a
+fresh state, then the consensus with each base's support, neither
+curated nor packed.
 """
 from __future__ import annotations
 
@@ -515,6 +518,63 @@ def run_tile_eager(pool, plen, idx, amode, aw, narms, th, *, N, L, P, m, n,
     st = run_arm_steps(pool, plen, idx, amode, aw, narms, N=N, L=L, P=P,
                        m=m, n=n, g=g, device=device)
     return _finish_packed(st, upload(th, device).to(_I32), N=N, P=P)
+
+
+def poa_full_batch(arms, arm_len, arm_mode, n_arms, *, N: int, L: int,
+                   K: int, P: int, m: int, n: int, g: int, device=None):
+    """Full POA for a batch of windows (hypo_tpu device_full
+    .poa_full_batch, less ``dp_impl``): a fresh graph state, then the K
+    arm steps (kernels 4, 1, 3, 5), window b active at step k while
+    k < n_arms[b], every arm with weight 1, then the consensus (kernels 4
+    and 2).
+
+    arms [B, K, L] global codes (A C G T J O = 0..5; int32 as in the JAX
+    package, or int8 as in the tile program's pool); arm_len [B, K];
+    arm_mode [B, K] (NW/LOV/ROV); n_arms [B]: numpy arrays or tensors.
+    Runs on ``device``, by default the device of ``arms`` when it is a
+    tensor, else the current CUDA device.  Returns (cons_codes int32
+    [B, N], cons_sup int32 [B, N], cons_len int32 [B], ovf bool [B]) on
+    that device; codes and supports past cons_len are those of position
+    0 of the backward consensus, as in the JAX package.  The inputs are
+    copied, once, into new int32 tensors in step-major order, so the
+    caller's arrays never change.  Every one of the K steps runs, as the
+    JAX package's lax.scan does: a step with no active window skips its
+    DP and walk rows and merges nothing."""
+    if device is None:
+        if torch.is_tensor(arms):
+            device = arms.device
+        elif torch.cuda.is_available():
+            device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            raise RuntimeError("poa_full_batch: no CUDA device; pass "
+                               "device='cpu' for the plain versions")
+    device = torch.device(device)
+    arms, arm_len, arm_mode, n_arms = (
+        torch.as_tensor(x) for x in (arms, arm_len, arm_mode, n_arms))
+    B = arms.shape[0]
+    want = dict(arms=(B, K, L), arm_len=(B, K), arm_mode=(B, K),
+                n_arms=(B,))
+    for name, x in zip(want, (arms, arm_len, arm_mode, n_arms)):
+        if tuple(x.shape) != want[name] or x.is_floating_point():
+            raise ValueError(f"poa_full_batch: {name} is {x.dtype} "
+                             f"{tuple(x.shape)}, expected integers of shape "
+                             f"{want[name]}")
+
+    def steps_first(x):
+        # a new contiguous int32 tensor on the device, step k at [k]
+        out = torch.empty((K,) + tuple(x.shape[:1]) + tuple(x.shape[2:]),
+                          dtype=_I32, device=device)
+        return out.copy_(x.transpose(0, 1))
+
+    arms_k, len_k, mode_k = (steps_first(x)
+                             for x in (arms, arm_len, arm_mode))
+    narms = torch.empty(B, dtype=_I32, device=device).copy_(n_arms)
+    st = init_state(N, P, B, device)
+    for k in range(K):
+        _arm_step_batch(st, arms_k[k], len_k[k], mode_k[k], k < narms, N=N,
+                        L=L, P=P, m=m, n=n, g=g)
+    cons_codes, cons_sup, cons_len = _consensus_batch(st, N=N, P=P)
+    return cons_codes, cons_sup, cons_len, st.ovf
 
 
 def as_devices(devices) -> List[torch.device]:

@@ -2,7 +2,7 @@
 of the CUDA kernels csrc/poa_dp.cu (poa.cuda_poa.poa_dp_batch) and
 csrc/poa_tb.cu (poa.cuda_tb.poa_tb_batch and poa_tb_matched, the
 traceback's two emitters), plus the host-side helpers of exact mode
-(hypo_tpu.poa.jax_poa:40-41, 184-191, 231-254, copied because jax_poa
+(hypo_tpu.poa.jax_poa:40-41, 184-228, 231-254, copied because jax_poa
 imports jax).
 
 Counterpart of hypo_tpu.poa.jax_poa.poa_dp_batch / _dp_one (:44-65,
@@ -29,7 +29,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from . import GLOBAL_CODE, LOV, NEG16, ROV
+from . import GLOBAL_CODE, LOV, NEG16, NW, ROV
 
 # ASCII byte -> global code; 255 marks a byte outside the alphabet
 _GLOBAL_LUT = np.full(256, 255, np.uint8)
@@ -54,6 +54,46 @@ def alignment_from_steps(ti: np.ndarray, tj: np.ndarray, steps: int,
     tj = tj[:steps][::-1].astype(np.int64)
     nodes = np.where(ti < 0, -1, rank_ids[np.maximum(ti, 0)])
     return list(zip(nodes.tolist(), tj.tolist()))
+
+
+def traceback_from_bp(bp: np.ndarray, pred_rows: np.ndarray,
+                      rank_to_node_id: List[int], arm_len: int, mode: int,
+                      max_row: int, P: int) -> List[Tuple[int, int]]:
+    """Host pointer walk of one window's backpointer plane bp [N+1, L+1]
+    from (max_row, arm_len); mirrors the oracle traceback loop structure
+    (row 0 can only move horizontally, H[0,j] = j*g).  Returns the
+    alignment pairs (node id or -1, arm position or -1) in forward order.
+    Copied from hypo_tpu.poa.jax_poa.traceback_from_bp (:194-228)."""
+    i = int(max_row)
+    j = int(arm_len)
+    alignment: List[Tuple[int, int]] = []
+    while True:
+        if mode in (NW, LOV):
+            if i == 0 and j == 0:
+                break
+        else:  # ROV
+            if i == 0 or j == 0:
+                break
+        if i == 0:
+            alignment.append((-1, j - 1))
+            j -= 1
+            continue
+        code = int(bp[i, j])
+        if code < P:          # diagonal
+            prev_i = int(pred_rows[i - 1, code])
+            prev_j = j - 1
+        elif code < 2 * P:    # vertical
+            prev_i = int(pred_rows[i - 1, code - P])
+            prev_j = j
+        else:                 # horizontal
+            prev_i = i
+            prev_j = j - 1
+        alignment.append((
+            -1 if prev_i == i else rank_to_node_id[i - 1],
+            -1 if prev_j == j else j - 1))
+        i, j = prev_i, prev_j
+    alignment.reverse()
+    return alignment
 
 
 def extract_graph_arrays(graph, N: int, P: int):

@@ -141,9 +141,10 @@ class FullDeviceRunner(DeviceConsensusRunner):
 
     KERNELS = ("poa_dp", "poa_tb", "consensus")
 
-    def __init__(self, sp: ScoreParams, device, threads: int = 0):
+    def __init__(self, sp: ScoreParams, device, threads: int = 0,
+                 fix_long_align_type: bool = False, use_native: bool = None):
         devices = runner_devices(device)
-        super().__init__(sp, devices[0])
+        super().__init__(sp, devices[0], fix_long_align_type, use_native)
         self.devices = devices
         self.ndev = len(devices)
         self._warm_thread: Optional[threading.Thread] = None
@@ -154,7 +155,8 @@ class FullDeviceRunner(DeviceConsensusRunner):
         for ci in range(len(CLASSES)):      # raises unless B splits
             self._program(ci, self.short_scores)
         self.threads = threads
-        self.host_engine = ConsensusEngine(sp)
+        self.host_engine = ConsensusEngine(sp, fix_long_align_type,
+                                           use_native)
         self.stats.update({"full_dispatches": 0, "full_windows": 0,
                            "full_overflows": 0, "trivial_windows": 0,
                            "host_long_windows": 0,

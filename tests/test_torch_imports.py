@@ -36,6 +36,8 @@ def test_port_imports_no_jax():
             "hypo_tpu_torch.tools.profile_device, "
             "hypo_tpu_torch.tools.long_window_stats, "
             "hypo_tpu_torch.tools.timing; "
+            "from hypo_tpu_torch.poa.device_full import poa_full_batch; "
+            "from hypo_tpu_torch.poa.dp import traceback_from_bp; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib')))")
     r = _run(["-c", code])

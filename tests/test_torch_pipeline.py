@@ -3,7 +3,9 @@ short-read simulation the port's polisher (tile program) writes a FASTA
 byte-identical to hypo_tpu's with --device-poa (JAX tile program) and
 with --no-device-poa (native host engine); on a 9 kbp hybrid simulation
 its exact mode, and its full mode without the native host library, both
-write the native host engine's FASTA."""
+write the native host engine's FASTA; on a 60 kbp simulation at 8x
+short-read coverage, whose weak windows reach tile class 1, the port's
+full mode writes the FASTA of hypo_tpu's host engine."""
 import hashlib
 
 import pytest
@@ -92,3 +94,34 @@ def test_port_full_mode_without_native_library_matches_host_engine(
     assert runner.stats["full_windows"] > 0
     assert runner.stats["host_long_windows"] > 0
     assert _md5(flags.output_filename) == md5
+
+
+# md5 of hypo_tpu.cli --no-device-poa's FASTA from ``python -m
+# hypo_tpu.sim --genome-size 60000 --short-cov 8 --seed 1`` polished
+# with ``-c 8 -s 60k``
+MD5_60K_8X = "843907f31cb7ab9c796681d6e7b93c6b"
+
+
+def test_port_full_mode_reaches_class_1_at_8x(tmp_path):
+    """Low short-read coverage leaves long gaps between solid k-mers, so
+    some weak windows' arms pass class 0's L = 126: the class-1 tile
+    program runs end to end, and the FASTA is hypo_tpu's host engine's."""
+    paths = simulate(SimConfig(genome_size=60000, short_cov=8, seed=1),
+                     str(tmp_path))
+
+    def flags(name, device_poa):
+        return InputFlags(
+            sr_filenames=[paths["reads"]],
+            sr_bam_filename=paths["sr_bam"],
+            draft_filename=paths["draft"],
+            output_filename=str(tmp_path / name),
+            k=get_kmer_len("60k"), cov=8, use_device_poa=device_poa,
+            device_poa_mode="full")
+
+    port = flags("port.fa", True)
+    stats = polish(port, device=torch.device("cpu")).device_runner.stats
+    assert stats["class_tiles"][1] >= 1 and stats["class_windows"][1] > 0
+    ref = flags("host.fa", False)
+    polish_ref(ref)
+    assert _md5(port.output_filename) == _md5(ref.output_filename) \
+        == MD5_60K_8X

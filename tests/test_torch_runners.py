@@ -3,18 +3,25 @@ CPU tensors (the kernels' plain versions): exact mode's
 DeviceConsensusRunner.run_windows (hypo_tpu_torch.poa.batch vs
 hypo_tpu.poa.batch) and the tile runner's run_windows, the path without
 the native host library (hypo_tpu_torch.poa.full_runner vs
-hypo_tpu.poa.full_runner).  Windows are test_device_poa's synthetic
-SHORT + LONG windows, made from numpy seeds, plus a few that force the
-host paths; consensus strings and stats must be equal (tolerance 0)."""
+hypo_tpu.poa.full_runner), each also with the runners' options
+fix_long_align_type and use_native.  Windows are test_device_poa's
+synthetic SHORT + LONG windows, made from numpy seeds, plus a few that
+force the host paths; consensus strings and stats must be equal
+(tolerance 0)."""
+import copy
+
 import numpy as np
 import pytest
+import torch
 
-from hypo_tpu.config import ScoreParams
+from hypo_tpu.config import InputFlags, ScoreParams, get_kmer_len
 from hypo_tpu.dna import encode
 from hypo_tpu.pipeline.window import LONG, SHORT, Window
 from hypo_tpu.poa import batch as jbatch
 from hypo_tpu.poa import full_runner as jfull
 from hypo_tpu.poa.engine import ConsensusEngine
+from hypo_tpu.sim import SimConfig, simulate
+from hypo_tpu_torch.pipeline.polish import Polisher
 from hypo_tpu_torch.poa import batch as tbatch
 from hypo_tpu_torch.poa import full_runner as tfull
 from test_device_poa import _make_windows, mutate, rand_seq
@@ -111,3 +118,136 @@ def test_full_runner_run_windows_matches_jax(monkeypatch):
     assert st["trivial_windows"] > 0
     assert st["class_windows"][1] > 0
     assert sum(st["class_tiles"]) == st["full_dispatches"]
+
+
+def consensus_of(wins, engine):
+    for w in wins:
+        engine.generate_consensus(w)
+    return [w.consensus for w in wins]
+
+
+@pytest.mark.parametrize("fix_long,use_native", [(True, None), (False, False),
+                                                 (True, False)])
+def test_exact_runner_options_match_jax(fix_long, use_native):
+    """DeviceConsensusRunner(sp, device, fix_long_align_type, use_native)
+    against hypo_tpu's runner with the same options, window by window,
+    and against hypo_tpu's host engine with them: use_native=False
+    merges into the Python Graph; fix_long_align_type aligns LONG
+    windows' prefix arms LOV and suffix arms ROV, which changes some
+    window's consensus from the default's."""
+    sp = ScoreParams()
+    kw = dict(fix_long_align_type=fix_long, use_native=use_native)
+    runs = {}
+    for name, runner in (
+            ("port", tbatch.DeviceConsensusRunner(sp, "cpu", **kw)),
+            ("jax", jbatch.DeviceConsensusRunner(sp, **kw))):
+        wins = windows(32, 24, long_arms=True)
+        assert runner.run_windows(wins) == len(wins)
+        assert runner.use_native == (use_native is not False)
+        runs[name] = ([w.consensus for w in wins], runner.stats)
+    port, jax_ = runs["port"], runs["jax"]
+    assert port[0] == jax_[0]
+    assert port[0] == consensus_of(windows(32, 24, long_arms=True),
+                                   ConsensusEngine(sp, fix_long, use_native))
+    for key in ("device_rounds", "device_aligns", "host_fallbacks"):
+        assert port[1][key] == jax_[1][key], key
+    assert 0 < port[1]["long_aligns"] < port[1]["device_aligns"]
+    default = consensus_of(windows(32, 24, long_arms=True),
+                           ConsensusEngine(sp))
+    assert (port[0] != default) == fix_long
+
+
+def test_full_runner_fix_long_run_windows_matches_jax(monkeypatch):
+    """FullDeviceRunner(..., fix_long_align_type=True).run_windows against
+    hypo_tpu's with the option, with one JAX device (HYPO_POA_NDEV=1):
+    LONG windows reach the host engine with the option, so some LONG
+    window differs from the default's (hypo_tpu's host engine, which the
+    full runner equals by default)."""
+    monkeypatch.setenv("HYPO_POA_NDEV", "1")
+    sp = ScoreParams()
+    runs = {}
+    for name, make in (
+            ("port", lambda: tfull.FullDeviceRunner(
+                sp, "cpu", fix_long_align_type=True)),
+            ("jax", lambda: jfull.FullDeviceRunner(
+                sp, fix_long_align_type=True))):
+        wins = windows(32, 24, long_arms=True)
+        runner = make()
+        assert runner.run_windows(wins) == len(wins)
+        runs[name] = ([w.consensus for w in wins], runner.stats)
+    port, jax_ = runs["port"], runs["jax"]
+    assert port[0] == jax_[0]
+    for key in ("full_dispatches", "full_windows", "full_overflows",
+                "trivial_windows", "host_long_windows", "host_fallbacks"):
+        assert port[1][key] == jax_[1][key], key
+    assert port[1]["host_long_windows"] > 0
+    assert port[0] == consensus_of(windows(32, 24, long_arms=True),
+                                   ConsensusEngine(sp, True))
+    wins = windows(32, 24, long_arms=True)
+    default = consensus_of(wins, ConsensusEngine(sp))
+    differ = [i for i, (a, b) in enumerate(zip(port[0], default)) if a != b]
+    assert differ and all(wins[i].wtype == LONG for i in differ)
+
+
+class _KeepLong:
+    """An exact-mode device runner for the port's polisher that keeps a
+    copy of every LONG window it is given, arms and all, and leaves the
+    consensus to the host engine."""
+
+    def __init__(self, sp):
+        self.engine = ConsensusEngine(sp)
+        self.long = []
+        self.stats = {}
+
+    def warm(self):
+        pass
+
+    def run_windows(self, windows):
+        self.long += [copy.deepcopy(w) for w in windows if w.wtype != SHORT]
+        return self.engine.generate_consensus_batch(windows)
+
+
+def test_exact_runner_fix_long_matches_jax_on_a_hybrid_sim(tmp_path):
+    """The LONG windows of an 8 kbp hybrid simulation (25x long reads,
+    short reads dropped over [0.2, 0.7) of the genome), as the port's
+    polisher builds them: the port's exact runner with
+    fix_long_align_type equals hypo_tpu's with it and hypo_tpu's host
+    engine with it, window by window, and some window differs from the
+    default's consensus."""
+    paths = simulate(SimConfig(genome_size=8000, seed=2,
+                               draft_error_rate=0.02, long_cov=25,
+                               dropout=(0.2, 0.7)), str(tmp_path))
+    flags = InputFlags(
+        sr_filenames=[paths["reads"]], sr_bam_filename=paths["sr_bam"],
+        lr_bam_filename=paths["lr_bam"], draft_filename=paths["draft"],
+        output_filename=str(tmp_path / "out.fa"),
+        k=get_kmer_len(str(paths["genome_size"])), cov=paths["short_cov"],
+        use_device_poa=True, device_poa_mode="exact")
+    sp = flags.score_params
+    keep = _KeepLong(sp)
+
+    class Keeping(Polisher):
+        def _make_device_runner(self):
+            return keep
+
+    Keeping(flags, torch.device("cpu")).polish()
+    assert len(keep.long) >= 8
+    assert any(w.pre_arms or w.suf_arms for w in keep.long)
+    runs = {}
+    for name, runner in (
+            ("port", tbatch.DeviceConsensusRunner(sp, "cpu",
+                                                  fix_long_align_type=True)),
+            ("jax", jbatch.DeviceConsensusRunner(sp,
+                                                 fix_long_align_type=True))):
+        wins = copy.deepcopy(keep.long)
+        assert runner.run_windows(wins) == len(wins)
+        runs[name] = ([w.consensus for w in wins], runner.stats)
+    port, jax_ = runs["port"], runs["jax"]
+    assert port[0] == jax_[0]
+    assert port[1]["long_aligns"] == port[1]["device_aligns"] > 0
+    for key in ("device_rounds", "device_aligns", "host_fallbacks"):
+        assert port[1][key] == jax_[1][key], key
+    assert port[0] == consensus_of(copy.deepcopy(keep.long),
+                                   ConsensusEngine(sp, True))
+    assert port[0] != consensus_of(copy.deepcopy(keep.long),
+                                   ConsensusEngine(sp))

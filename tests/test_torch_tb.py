@@ -142,6 +142,33 @@ def test_host_helpers_match_jax_poa():
                 assert np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("case", ["short_N128_L64_P2", "short_N128_L128_P4",
+                                  "long_N256_L128_P8"])
+def test_traceback_from_bp_matches_jax_poa(case):
+    """The host walk of one window's backpointer plane
+    (poa.dp.traceback_from_bp) equals jax_poa.traceback_from_bp on the
+    JAX DP's bp, in NW, LOV and ROV (the bucket's modes cycle), and both
+    equal the alignment of the port's batched walk on the same bp."""
+    seed, B, N, L, P, (m, n, g), nseq, blen, rate = CASES[case]
+    args, rank_ids = graph_bucket(seed, B, N, L, P, (m, n, g), nseq, blen,
+                                  rate)
+    kw = dict(N=N, L=L, P=P, m=m, n=n, g=g)
+    bp, max_row = (np.array(x) for x in jax_poa.poa_dp_batch(*args, **kw))
+    ti, tj, steps = (x.numpy() for x in tdp.poa_tb_batch_ref(
+        *(torch.from_numpy(a) for a in (bp, args[1], max_row, args[6],
+                                        args[7])), N=N, L=L, P=P))
+    modes = set()
+    for b in range(B):
+        walk = (bp[b], args[1][b], rank_ids[b].tolist(), int(args[6][b]),
+                int(args[7][b]), int(max_row[b]), P)
+        got = tdp.traceback_from_bp(*walk)
+        assert got == jax_poa.traceback_from_bp(*walk), (case, b)
+        assert got == tdp.alignment_from_steps(ti[b], tj[b], int(steps[b]),
+                                               rank_ids[b]), (case, b)
+        modes.add(int(args[7][b]))
+    assert modes == {NW, LOV, ROV}
+
+
 def test_wrappers_take_plain_versions_for_cpu_tensors(monkeypatch):
     """poa_tb_batch runs the plain traceback on CPU tensors without
     counting a launch; poa_dp_tb_batch gives the same results when its
