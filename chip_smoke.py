@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (hypo_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--baseline OLD_poa_dp.cu OLD_poa_tb.cu
-                           OLD_consensus.cu OLD_poa_merge.cu]
+                           OLD_consensus.cu OLD_poa_rank.cu
+                           OLD_poa_merge.cu]
 
 Phases, each raising on failure (so the script exits non-zero and never
 prints its last line):
@@ -24,8 +25,9 @@ prints its last line):
      larger of the bytes it must move over 3.35 TB/s and its int32
      operations over 132 SMs x 64 lanes x the card's clocks.max.sm.
      ``--baseline`` takes earlier sources of kernel 1 (csrc/poa_dp.cu),
-     kernel 3 (csrc/poa_tb.cu), kernel 2 (csrc/consensus.cu) and kernel
-     5 (csrc/poa_merge.cu), told apart by the entry they export, and times each at its shapes in
+     kernel 3 (csrc/poa_tb.cu), kernel 2 (csrc/consensus.cu), kernel 4
+     (csrc/poa_rank.cu) and kernel 5 (csrc/poa_merge.cu), told apart by
+     the entry they export, and times each at its shapes in
      turns with this one (baseline, this, this, baseline), after
      checking it against the plain version;
   4. consensus kernel vs its plain version on the rank arrays of a real
@@ -44,12 +46,20 @@ prints its last line):
      as the eager steps ran) and on its final state: kernel 4 with all
      its leaves and with the arm step's and the finish's subsets, kernel
      5 on a copy of each state (it merges in place), every leaf equal;
-     device and call times at the third step (kernel 5's device time
-     from its kernel alone: its state is restored before each call),
-     each against its bound on that step's own bytes; kernel 5's launch
-     shape; with a ``--baseline`` of kernel 5, that kernel checked
-     against the plain version and timed in turns with this one at the
-     third step;
+     the step head (cuda_rank.step_head: the tile program's arm fetch
+     and kernel 4 in one launch) against its plain version
+     (device_full._step_head_batch) at steps 0, 1, 2, the middle one
+     and the last, and on a ragged copy of the tile's arm rows (windows
+     with no arm, a -1 in mid-row, rows past narms) at step 1, the last
+     and the one after; device and call times at the third step
+     (kernel 5's device time from its kernel alone: its state is
+     restored before each call), each against its bound on that step's
+     own bytes, and the head in turns with the fetch's torch ops plus
+     kernel 4 (the step before the head); kernel 4's and kernel 5's
+     launch shapes; with a ``--baseline`` of kernel 4 or 5, that kernel
+     checked against the plain version and timed in turns with this
+     one at the third step (kernel 4 with each leaf set, on the final
+     state for the finish's);
   5. each tile through the tile program (its CUDA graphs captured at
      that first tile) vs the eager arm steps and finish, and vs the
      NumPy spec hypo_tpu_torch.poa.colpoa_ref.ColPoa on every window
@@ -117,6 +127,10 @@ prints its last line):
      window without overflow equal to ColPoa; times; then each kernel
      against its plain version and timed, with its bound, on the class-1
      call's third arm step (the class-1 kernels' first real-tile times);
+     then on each of those two tiles as the runner packed them, merged
+     by the eager arm steps, the step head and kernel 4 (every leaf set)
+     against their plain versions at steps 0, 1, 2, the middle one and
+     the last, and the head timed at the class-1 tile's third step;
   13. the runners' ``fix_long_align_type`` on phase 7's 1 Mbp hybrid
      simulation, through a Polisher subclass (neither CLI has the
      option): exact mode (LONG windows' prefix arms LOV and suffix arms
@@ -126,9 +140,10 @@ prints its last line):
      engine writes phase 7's pin, and some windows differ from its.
 Launch counters count kernels that ran: a launch captured in a graph
 counts at each replay (the capture's eager first call of each part
-counts once), so a path's counts are its arm steps (kernels 1, 3, 5),
-its tiles (kernel 2) and both (kernel 4: each step and each finish),
-plus one of each for every capture.
+counts once), so a path's counts are its arm steps (kernels 1, 3, 5,
+and kernel 4 as the step head), its tiles (kernel 2, and kernel 4 as
+the finish's rank), plus one of each for every capture; the eager arm
+steps of poa_full_batch rank through kernel 4's rank_arrays.
 Phases 6-9, 11 and 13 run the port in this process, and phase 12 its
 first two poa_full_batch calls, every launch counter set to 0 just
 before each run and read just after.  Nothing of hypo_tpu or jax
@@ -171,7 +186,8 @@ from hypo_tpu_torch.poa.cuda_consensus import heaviest_bundle
 from hypo_tpu_torch.poa import cuda_merge, cuda_poa, cuda_rank
 from hypo_tpu_torch.poa.cuda_merge import merge_arm
 from hypo_tpu_torch.poa.cuda_poa import poa_dp_batch
-from hypo_tpu_torch.poa.cuda_rank import CONS_LEAVES, STEP_LEAVES, rank_arrays
+from hypo_tpu_torch.poa.cuda_rank import (CONS_LEAVES, STEP_LEAVES,
+                                          rank_arrays, step_head)
 from hypo_tpu_torch.poa.cuda_tb import poa_tb_batch, poa_tb_matched
 from hypo_tpu_torch.poa.dp import (poa_dp_batch_ref, poa_tb_batch_ref,
                                    poa_tb_matched_ref)
@@ -180,15 +196,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SCORES = dict(m=5, n=-4, g=-8)
 LONG_SCORES = dict(m=3, n=-5, g=-4)
 KERNELS = ("poa_dp", "poa_tb", "consensus", "poa_rank", "poa_merge")
-# each kernel's wrappers; kernel 3 has one for each emitter
+# each kernel wrapper's launches; kernel 3 has one wrapper for each
+# emitter, kernel 4 (csrc/poa_rank.cu) its rank (the finish's, and each
+# eager arm step's) and the tile program's step head
 COUNTERS = {"poa_dp": (poa_dp_batch,),
             "poa_tb": (poa_tb_batch, poa_tb_matched),
             "consensus": (heaviest_bundle,),
             "poa_rank": (rank_arrays,),
+            "poa_step_head": (step_head,),
             "poa_merge": (merge_arm,)}
+# what a polish in mode full (its arm steps in the tile program) launches
+FULL_PATH = KERNELS + ("poa_step_head",)
 # the C entry by which a --baseline source is known as a kernel's
 BASELINE_ENTRY = {"poa_dp": "hypo_poa_dp", "poa_tb": "hypo_poa_tb",
                   "consensus": "hypo_heaviest_bundle",
+                  "poa_rank": "hypo_poa_rank",
                   "poa_merge": "hypo_poa_merge"}
 REPS = 5
 KERNEL_INNER = 10
@@ -882,9 +904,6 @@ def phase_tile_walk(name, calls, N, L, P) -> dict:
                 bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
 
 
-PRED_LEAVES = ("pred_nd_r", "pred_ranks", "pred_rows", "pred_w_r")
-
-
 def rank_bound(st, N, P, leaves) -> dict:
     """Kernel 4's bound on this state for ``leaves``: per window its two
     counts (8 bytes); per valid column its position and NCODES col_node
@@ -899,9 +918,10 @@ def rank_bound(st, N, P, leaves) -> dict:
     lv = set(leaves)
     per_node = 4 + 4 * len(lv & {"node_code_r", "node_sup_r", "pred_cnt_r",
                                  "is_end_r"})
-    per_node += 4 * P * (bool(lv & set(PRED_LEAVES)) + ("pred_w_r" in lv))
-    elems = sum(N * P if f in PRED_LEAVES else N for f in lv)
-    written = B * sum((N * P if f in PRED_LEAVES else N)
+    pred = set(cuda_rank.PRED_FIELDS)
+    per_node += 4 * P * (bool(lv & pred) + ("pred_w_r" in lv))
+    elems = sum(N * P if f in pred else N for f in lv)
+    written = B * sum((N * P if f in pred else N)
                       * (1 if f == "is_end_r" else 4) for f in lv)
     return bound(8 * B + 28 * cols + per_node * nodes + written,
                  12 * cols + 14 * nodes + 3 * B * elems)
@@ -986,7 +1006,165 @@ def merge_versions(name, args, want, N, L, P, restore, work,
                     less=restore)
 
 
-def phase_rank_merge(name, steps, final, N, L, P, baseline=None) -> tuple:
+def baseline_rank(lib, st, N, leaves):
+    """Kernel 4 of library ``lib`` (an earlier source's) through its C
+    entry hypo_poa_rank: the RankArrays of ``leaves`` (others None), in
+    new tensors, as rank_arrays makes them."""
+    B, P = st.pred_nd.shape[0], st.pred_nd.shape[2]
+    outs = [torch.empty(cuda_rank.leaf_shape(f, B, N, P),
+                        dtype=cuda_rank.leaf_dtype(f),
+                        device=st.n_nodes.device) if f in leaves else None
+            for f in cuda_rank.FIELDS]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.hypo_poa_rank.restype = ci
+    lib.hypo_poa_rank.argtypes = [vp] * 22 + [ci] * 4 + [vp]
+    p = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
+    rc = lib.hypo_poa_rank(
+        *map(p, st[:11]), *map(p, outs), B, N, P,
+        sum(cuda_rank.LEAF_BITS[f] for f in leaves),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, rc, "baseline poa_rank launch")
+    return TF.RankArrays(*outs)
+
+
+def rank_versions(what, st, N, leaves, want, baseline) -> dict:
+    """Kernel 4 against an earlier kernel 4 (``baseline``) on ``st`` for
+    ``leaves``, in turns; the baseline checked against the plain
+    version's RankArrays ``want`` first."""
+    if baseline is None:
+        return {}
+    got = baseline_rank(baseline, st, N, leaves)
+    err = max(leaf_diff(getattr(got, f), getattr(want, f)) for f in leaves)
+    if err:
+        raise RuntimeError(f"baseline rank != plain on {what}: {err}")
+    return in_turns(what, lambda: baseline_rank(baseline, st, N, leaves),
+                    lambda: rank_arrays(st, N, leaves))
+
+
+def tile_tensors(arrays, dev):
+    """A tile's arm arrays (pool, plen, idx, amode, aw, narms) on ``dev``
+    as the tile program's buffers hold them."""
+    dt = (np.int8, np.int32, np.int32, np.int8, np.int32, np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, d)).to(dev)
+                 for x, d in zip(arrays[:6], dt))
+
+
+def ragged_rows(arrays):
+    """A tile's arm arrays with the ragged rows a tile may hold: every
+    7th window with no arm (narms 0, idx -1), every 5th from window 1
+    with three arms or more a -1 at arm 1, every 6th from window 2 pool
+    rows set past its narms."""
+    pool, plen, idx, amode, aw, narms = arrays[:6]
+    idx, narms = np.array(idx), np.array(narms)
+    B, K = idx.shape
+    idx[::7] = -1
+    narms[::7] = 0
+    hole = [b for b in range(1, B, 5) if narms[b] >= 3]
+    idx[hole, 1] = -1
+    rng = np.random.default_rng(7)
+    for b in range(2, B, 6):
+        if b % 7:
+            idx[b, narms[b]:] = rng.integers(0, len(pool), K - narms[b])
+    return pool, plen, idx, amode, aw, narms
+
+
+def head_diff(got, want) -> int:
+    """max |diff| over the step head's outputs and rank leaves."""
+    return max([leaf_diff(getattr(got, f), getattr(want, f))
+                for f in TF.StepHead._fields[:-1]]
+               + [leaf_diff(getattr(got.ra, f), getattr(want.ra, f))
+                  for f in STEP_LEAVES])
+
+
+def head_checks(name, states, arrays, N, L) -> int:
+    """The step head against its plain version at steps 0, 1, 2, the
+    middle one and the last of a tile (``states``: the state before each
+    arm step, then the final one; ``arrays`` the tile's arm arrays), and
+    on its ragged rows at step 1, the last and the one after; raises on
+    a difference; returns how many steps were compared."""
+    dev = states[0].n_nodes.device
+    B, P = states[0].pred_nd.shape[0], states[0].pred_nd.shape[2]
+    kmax = len(states) - 1
+    tiles = {"tile": tile_tensors(arrays, dev),
+             "ragged": tile_tensors(ragged_rows(arrays), dev)}
+    calls = [("tile", k) for k in sorted({0, 1, 2, kmax // 2, kmax - 1})
+             if 0 <= k < kmax]
+    calls += [("ragged", k) for k in sorted({1, kmax - 1, kmax})
+              if 0 <= k < min(kmax + 1, arrays[2].shape[1])]
+    out = TF.head_buffers(B, N, L, P, dev)
+    for rows, k in calls:
+        st = states[min(k, kmax)]
+        kt = torch.tensor([k], dtype=torch.int32, device=dev)
+        step_head(st, *tiles[rows], kt, out, N=N)
+        err = head_diff(out, TF._step_head_batch(st, *tiles[rows], kt, N=N))
+        if err or int(kt) != k:
+            raise RuntimeError(f"{name}: step head != plain at step {k} "
+                               f"({rows} rows; max |diff| {err})")
+    log(f"step head {name} B={B} N={N} L={L}: equal to its plain version "
+        f"at steps {[k for r, k in calls if r == 'tile']} and on ragged "
+        f"rows at steps {[k for r, k in calls if r == 'ragged']} "
+        f"({int(tiles['ragged'][5].eq(0).sum())} windows with no arm)")
+    return len(calls)
+
+
+def old_fetch_rank(st, t, k, N):
+    """The arm step's head before the step head: _Block.step's fetch of
+    arm k as torch ops, act and nn_eff, and kernel 4 (rank_arrays)."""
+    pool, plen, idx, amode, aw, narms = t
+    col = k.long().expand(idx.shape[0], 1)
+    rows = idx.gather(1, col)[:, 0]
+    active = (k < narms) & (rows >= 0)
+    rr = rows.clamp(min=0).long()
+    al = torch.where(active, plen[rr], 0)
+    act = active & (al > 0) & (st.n_nodes > 0)
+    return (pool[rr].to(torch.int32), al,
+            amode.gather(1, col)[:, 0].to(torch.int32),
+            aw.gather(1, col)[:, 0], active, act,
+            torch.where(act, st.n_nodes, 0),
+            rank_arrays(st, N, STEP_LEAVES))
+
+
+def head_bound(st, N, P, L) -> dict:
+    """The step head's bound: kernel 4's with the step's leaves
+    (rank_bound) plus the fetch's bytes, per window its idx entry,
+    narms, plen and aw entries (4 bytes each), its amode entry (1) and
+    its pool row's L bytes read, and its arm (4L bytes), arm_len, mode,
+    w, nn_eff (4 each), active and act (1 each) written."""
+    bd = rank_bound(st, N, P, STEP_LEAVES)
+    B = st.n_nodes.numel()
+    return bound(bd["bytes"] + B * (17 + L + 4 * L + 18), bd["ops"])
+
+
+def head_times(name, st, arrays, k, N, L, P) -> dict:
+    """The step head at step k of a tile: its device and call times
+    against its bound, its plain version's time, and in turns with the
+    step's fetch as torch ops plus kernel 4 (old_fetch_rank)."""
+    dev = st.n_nodes.device
+    B = st.n_nodes.numel()
+    t = tile_tensors(arrays, dev)
+    kt = torch.tensor([k], dtype=torch.int32, device=dev)
+    out = TF.head_buffers(B, N, L, P, dev)
+    plain_ms = cuda_ms(lambda: TF._step_head_batch(st, *t, kt, N=N))
+    v = in_turns(f"step head {name} at step {k} (baseline: the fetch's "
+                 f"torch ops and kernel 4)",
+                 lambda: old_fetch_rank(st, t, kt, N),
+                 lambda: step_head(st, *t, kt, out, N=N))
+    bd = head_bound(st, N, P, L)
+    ms = v["new_ms"]
+    log(f"step head {name} B={B} N={N} L={L} P={P} at step {k}: "
+        f"{ms:.4f} ms ({v['new_call_ms']:.4f} ms a call), the fetch's torch "
+        f"ops and kernel 4 {v['baseline_ms']:.4f} ms "
+        f"({v['baseline_call_ms']:.4f} ms a call), plain {plain_ms:.3f} "
+        f"ms; bound {bd['bound_ms']:.5f} ms by {bd['bound_by']} "
+        f"({bd['bytes'] / 1e6:.2f} MB): {bd['bound_ms'] / ms:.4f} of it")
+    return dict(ms=ms, call_ms=v["new_call_ms"], plain_ms=plain_ms,
+                max_abs_err=0, bound_ms=bd["bound_ms"],
+                bound_by=bd["bound_by"], fetch_rank_ms=v["baseline_ms"],
+                fetch_rank_call_ms=v["baseline_call_ms"])
+
+
+def phase_rank_merge(name, steps, final, N, L, P, arrays, baseline=None,
+                     rank_baseline=None) -> tuple:
     """Kernels 4 (rank) and 5 (merge) against their plain versions
     (device_full._rank_arrays_batch, _merge_step) on the state before
     every arm step of the tile, recorded as the eager arm steps ran, and
@@ -994,11 +1172,15 @@ def phase_rank_merge(name, steps, final, N, L, P, baseline=None) -> tuple:
     and for the arm step's and the finish's subsets, kernel 5 on a copy
     of each state (it works in place), every leaf.  Times at the third
     arm step (kernel 4's step and all-leaf forms, kernel 5) and on the
-    final state (the finish's form).  Kernel 5 restores its copy of the
-    state before each call (12 device copies): its device time counts
-    its kernel alone, its call time is the pair's less the restore's;
-    there it is also timed against the ``baseline`` library of an
-    earlier kernel 5 in turns."""
+    final state (the finish's form), each form in turns with the
+    ``rank_baseline`` library of an earlier kernel 4 when given.  The
+    step head against its plain version (head_checks, on the tile's arm
+    ``arrays``) and timed at the third step (head_times).  Kernel 5
+    restores its copy of the state before each call (12 device copies):
+    its device time counts its kernel alone, its call time is the pair's
+    less the restore's; there it is also timed against the ``baseline``
+    library of an earlier kernel 5 in turns.  Returns (kernel 4's
+    times, kernel 5's, the head's)."""
     kw = dict(N=N, L=L, P=P)
     err_r = err_m = 0
     for st, args in steps + [(final, None)]:
@@ -1017,22 +1199,38 @@ def phase_rank_merge(name, steps, final, N, L, P, baseline=None) -> tuple:
                            f"{err_r}) or merge kernel != plain ({err_m})")
     at = min(2, len(steps) - 1)
     st, args = steps[at]
+    B = st.n_nodes.numel()
+    shape = cuda_rank.launch_shape(B, N)
+    log(f"rank {name} launch: {shape.warps} warp(s) a window, "
+        f"{shape.windows} window(s) a block: {shape.threads} threads, "
+        f"{shape.smem} B shared memory a block")
+    head_checks(name, [s for s, _a in steps] + [final], arrays, N, L)
+    head = {name: head_times(name, st, arrays, at, N, L, P)}
     rank = {}
     for label, state, leaves in (("step", st, STEP_LEAVES),
                                  ("all", st, cuda_rank.FIELDS),
                                  ("finish", final, CONS_LEAVES)):
         ms, call_ms = kernel_ms(lambda: rank_arrays(state, N, leaves))
+        want = TF._rank_arrays_batch(state, N)
         plain_ms = cuda_ms(lambda: TF._rank_arrays_batch(state, N))
         bd = rank_bound(state, N, P, leaves)
         rank[f"{name}_{label}"] = dict(
             ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err_r,
-            bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
+            bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+            launch=shape._asdict())
         log(f"rank {name} {label} ({len(leaves)} leaves) "
-            f"B={st.n_nodes.numel()} N={N} P={P}: equal at every arm step "
+            f"B={B} N={N} P={P}: equal at every arm step "
             f"and on the final state; kernel {ms:.4f} ms "
             f"({call_ms:.4f} ms a call), plain {plain_ms:.3f} ms; bound "
             f"{bd['bound_ms']:.5f} ms by {bd['bound_by']} "
             f"({bd['bytes'] / 1e6:.2f} MB): {bd['bound_ms'] / ms:.4f} of it")
+        versions = rank_versions(f"rank {name} {label}", state, N, leaves,
+                                 want, rank_baseline)
+        if versions:
+            rank[f"{name}_{label}"].update(versions)
+            log(f"rank {name} {label} share of the bound: baseline "
+                f"{bd['bound_ms'] / versions['baseline_ms']:.4f}, this "
+                f"kernel {bd['bound_ms'] / versions['new_ms']:.4f}")
     work = TF.clone_state(st)
 
     def restore():
@@ -1071,11 +1269,12 @@ def phase_rank_merge(name, steps, final, N, L, P, baseline=None) -> tuple:
         log(f"merge {name} share of the bound: baseline "
             f"{bd['bound_ms'] / versions['baseline_ms']:.4f}, this kernel "
             f"{bd['bound_ms'] / versions['new_ms']:.4f}")
-    return rank, merge
+    return rank, merge, head
 
 
 def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
-               baseline=None, merge_baseline=None) -> dict:
+               baseline=None, merge_baseline=None,
+               rank_baseline=None) -> dict:
     K, P = 16, 8
     t0 = time.time()
     pool, plen, idx, amode, aw, narms, specs = random_tile(
@@ -1116,7 +1315,9 @@ def phase_tile(rng, dev, name, B, L, N, tlen, min_spec,
     tb = phase_tile_walk(name, calls, N, L, P)
     del calls
     rank_merge = phase_rank_merge(name, states, st, N, L, P,
-                                  baseline=merge_baseline)
+                                  (pool, plen, idx, amode, aw, narms),
+                                  baseline=merge_baseline,
+                                  rank_baseline=rank_baseline)
     del states
 
     # 4. consensus kernel vs plain on the final graphs' rank arrays
@@ -1526,7 +1727,7 @@ def phase_e2e(tmp: str, genome_size: int = 4_000_000) -> dict:
     log_times("e2e host engine (--no-device-poa)", host_times)
     check_qv("e2e", sim, out)
     same_md5("e2e", sim, _md5(out), md5_host)
-    check_launches("e2e (full mode, 4 Mbp)", launches, KERNELS)
+    check_launches("e2e (full mode, 4 Mbp)", launches, FULL_PATH)
     return launches
 
 
@@ -1590,7 +1791,7 @@ def phase_exact_e2e(tmp: str, genome_size: int = 1_000_000) -> tuple:
     log_times("hybrid full-mode port (--device-poa)", times, wall)
     log_tiles("hybrid full-mode port", stats)
     same_md5("hybrid full mode", sim, _md5(out), md5_host)
-    check_launches("full mode (1 Mbp hybrid)", full_launches, KERNELS)
+    check_launches("full mode (1 Mbp hybrid)", full_launches, FULL_PATH)
     return launches, full_launches
 
 
@@ -1608,7 +1809,7 @@ def phase_no_native(tmp: str, genome_size: int = 200_000) -> dict:
     log_tiles("no-native port", stats)
     log_times("no-native host engine (native, --no-device-poa)", host_times)
     same_md5("no-native", sim, _md5(out), md5_host)
-    check_launches("no-native (200 kbp hybrid)", launches, KERNELS)
+    check_launches("no-native (200 kbp hybrid)", launches, FULL_PATH)
     return launches
 
 
@@ -1665,7 +1866,7 @@ def two_ranks(tmp: str, sim: str, common, md5_host: str) -> dict:
         f"loads included)")
     same_md5("two ranks (gathered by rank 0)", sim, _md5(out), md5_host)
     check_launches("two ranks (rank 0, 4 Mbp in 4 contigs)", launches,
-                   KERNELS)
+                   FULL_PATH)
     return launches
 
 
@@ -1731,7 +1932,7 @@ def phase_sharded(tmp: str, genome_size: int = 4_000_000) -> tuple:
                            f"not summing to {stats['full_windows']}")
     same_md5("split over two device blocks", sim, _md5(out), md5_host)
     check_launches("split (4 Mbp in 4 contigs, two device blocks)", split,
-                   KERNELS)
+                   FULL_PATH)
     # the entry points
     fn, args = entry.entry()
     got = fn(*args)
@@ -1842,7 +2043,7 @@ def phase_class1(tmp: str, genome_size: int = 2_000_000) -> tuple:
                            f"tiles, at least 2 expected")
     check_qv("class 1 e2e", sim, out)
     same_md5("class 1 e2e", sim, _md5(out), md5_host)
-    check_launches("class 1 e2e (full mode, 2 Mbp at 8x)", launches, KERNELS)
+    check_launches("class 1 e2e (full mode, 2 Mbp at 8x)", launches, FULL_PATH)
     return launches, first
 
 
@@ -2056,7 +2257,55 @@ def phase_full_batch(dev, tiles) -> tuple:
                     TF.poa_full_batch(*given, N=N, L=L, **kw)
                 real = real_tile_kernels("class-1 real tile", rec.kept, N, L,
                                          kw["P"])
+    real["poa_step_head"] = real_tile_heads(dev, tiles)
     return launches, real
+
+
+def real_tile_heads(dev, tiles) -> dict:
+    """The step head and kernel 4 on phase 11's first tile of each class
+    as the runner packed it (its weights kept), merged by the eager arm
+    steps: the head against its plain version (head_checks), kernel 4
+    with every leaf set against _rank_arrays_batch on the state before
+    each arm step and the final one; the head timed at the class-1
+    tile's third step.  Returns that time's record."""
+    from hypo_tpu_torch.poa.full_runner import CLASSES, P_FULL
+    timed = {}
+    for ci in sorted(tiles):
+        L, N = CLASSES[ci][:2]
+        states = []
+
+        def record(st, *args, **kw):
+            states.append(TF.clone_state(st))
+            return merge_arm(st, *args, **kw)
+
+        TF.merge_arm = record
+        try:
+            final = TF.run_arm_steps(*tiles[ci][:6], N=N, L=L, P=P_FULL,
+                                     device=dev, **SCORES)
+        finally:
+            TF.merge_arm = merge_arm
+        states.append(final)
+        name = f"class-{ci} real tile"
+        head_checks(name, states, tiles[ci], N, L)
+        err = 0
+        for st in states:
+            want = TF._rank_arrays_batch(st, N)
+            for leaves in (cuda_rank.FIELDS, STEP_LEAVES, CONS_LEAVES):
+                got = rank_arrays(st, N, leaves)
+                err = max([err] + [leaf_diff(getattr(got, f),
+                                             getattr(want, f))
+                                   for f in leaves])
+        if err:
+            raise RuntimeError(f"{name}: rank kernel != plain (max |diff| "
+                               f"{err})")
+        log(f"rank {name}: every leaf set equal to plain on the state "
+            f"before each of its {len(states) - 1} arm steps and the final "
+            f"one")
+        if ci == 1:
+            at = min(2, len(states) - 2)
+            timed = head_times(name, states[at], tiles[ci], at, N, L,
+                               P_FULL)
+    return timed
 
 
 # -- 13. exact mode with fix_long_align_type --------------------------------------
@@ -2150,7 +2399,7 @@ def phase_exact_fixlong(tmp: str, genome_size: int = 1_000_000) -> tuple:
     check_launches("exact with fix_long (1 Mbp hybrid)", exact_launches,
                    ("poa_dp", "poa_tb"))
     check_launches("full with fix_long (1 Mbp hybrid)", full_launches,
-                   KERNELS)
+                   FULL_PATH)
     return exact_launches, full_launches
 
 
@@ -2176,14 +2425,16 @@ def main() -> None:
     dp = phase_dp(rng, dev, baselines.get("poa_dp"))
     exact_dp, exact_tb = phase_exact_dp(rng, dev, baselines)
     cons = {t[0]: phase_tile(rng, dev, *t, baseline=baselines.get("consensus"),
-                             merge_baseline=baselines.get("poa_merge"))
+                             merge_baseline=baselines.get("poa_merge"),
+                             rank_baseline=baselines.get("poa_rank"))
             for t in TILES}
     tile_tb = {k: v.pop("tb") for k, v in cons.items()}
-    tile_rank, tile_merge = {}, {}
+    tile_rank, tile_merge, tile_head = {}, {}, {}
     for v in cons.values():
-        r, m = v.pop("rank_merge")
+        r, m, h = v.pop("rank_merge")
         tile_rank.update(r)
         tile_merge.update(m)
+        tile_head.update(h)
     phase_profile(cons["class0"]["tile"], cons["class0"]["targs"],
                   N=TILES[0][3], L=TILES[0][2], P=8, dev=dev)
     with tempfile.TemporaryDirectory(prefix="hypo_chip_smoke_") as tmp:
@@ -2204,11 +2455,11 @@ def main() -> None:
                 if f not in ("tile", "targs", "graphs")}
             for k, v in cons.items()}
 
-    def entry(name, key, replaces, path, shape, by_shape):
+    def entry(name, key, replaces, path, shape, by_shape, source=None):
         # launches on ``path`` (every path's under "launches_by_path");
         # ms / plain_ms at ``shape`` (every shape under "shapes")
         return dict(name=name, route="cuda",
-                    source=f"hypo_tpu_torch/csrc/{key}.cu",
+                    source=f"hypo_tpu_torch/csrc/{source or key}.cu",
                     replaces=replaces, launches=paths[path][key],
                     path=path, max_abs_err=max(v["max_abs_err"]
                                                for v in by_shape.values()),
@@ -2240,6 +2491,11 @@ def main() -> None:
               {**tile_rank,
                "class1_real_step": real["poa_rank_step"]["class1_real"],
                "class1_real_finish": real["poa_rank_finish"]["class1_real"]}),
+        entry("poa_step_head", "poa_step_head",
+              "hypo_tpu/poa/device_full.py:756-765 and :444-445 (the tile "
+              "body's arm fetch) with :144-193 (XLA, no Pallas kernel)",
+              "full_4mbp", "class0", {**tile_head, **real["poa_step_head"]},
+              source="poa_rank"),
         entry("poa_merge", "poa_merge",
               "hypo_tpu/poa/device_full.py:309-424 (XLA, no Pallas kernel)",
               "full_4mbp", "class0", {**tile_merge, **real["poa_merge"]}),

@@ -272,9 +272,12 @@ def child(opts) -> None:
     from .poa import cuda_consensus, cuda_merge, cuda_poa, cuda_rank, cuda_tb
     from .tools.timing import card, device_for
     dev = device_for(opts.device)
-    counters = (cuda_poa.poa_dp_batch, cuda_tb.poa_tb_matched,
-                cuda_consensus.heaviest_bundle, cuda_rank.rank_arrays,
-                cuda_merge.merge_arm)
+    # each kernel's wrappers (kernel 4 has the finish's rank and the
+    # step head)
+    counters = ((cuda_poa.poa_dp_batch,), (cuda_tb.poa_tb_matched,),
+                (cuda_consensus.heaviest_bundle,),
+                (cuda_rank.rank_arrays, cuda_rank.step_head),
+                (cuda_merge.merge_arm,))
     spans = Spans()
     spans.install()
     size = genome_size(opts.sim)
@@ -286,8 +289,9 @@ def child(opts) -> None:
             os.path.join(opts.out_dir, f"aux_{run}")]
         flags = flags_from_args(build_parser().parse_args(argv))
         spans.reset()
-        for c in counters:
-            c.launches = 0
+        for ws in counters:
+            for c in ws:
+                c.launches = 0
         log_path = os.path.join(opts.out_dir, f"device_{run}.log")
         t0 = time.time()
         with open(log_path, "w") as fh:
@@ -306,7 +310,8 @@ def child(opts) -> None:
             "run": run, "device": name, "windows": nwin,
             "poa_s": spans.poa_s, "total_s": total_s, "wall_s": wall,
             "md5": md5(out), "windows_per_s": nwin / spans.poa_s,
-            "launches": dict(zip(KERNELS, (c.launches for c in counters))),
+            "launches": dict(zip(KERNELS, (sum(c.launches for c in ws)
+                                           for ws in counters))),
             "stats": p.device_runner.stats,
             "pipeline": spans.table(), "calls": dict(spans.calls)}),
             flush=True)

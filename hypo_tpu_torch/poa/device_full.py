@@ -4,7 +4,8 @@ hypo_tpu.poa.colpoa_ref.
 
 A tile of B windows carries one fixed-shape graph state per window
 (``PoaState``, leading batch dimension B).  Each arm step ranks every
-graph (kernel 4, poa.cuda_rank), runs the graph-vs-arm DP (kernel 1,
+graph (kernel 4, poa.cuda_rank; in the tile program the step head,
+which also fetches the step's arms), runs the graph-vs-arm DP (kernel 1,
 poa.cuda_poa), walks the backpointers (kernel 3, poa.cuda_tb) and merges
 the arm into the state in place (kernel 5, poa.cuda_merge); after the
 last step the graphs are ranked again and the heaviest-bundle consensus
@@ -13,16 +14,16 @@ in shared memory) is curated and packed into nibbles.  Windows that
 overflow a cap get a sticky ``ovf`` flag and are re-run on the host
 engine by the runner.
 
-The plain versions of kernels 4, 5 and 2 are ``_rank_arrays_batch``,
-``_merge_step`` (``_merge`` and the state selection) and
-``_consensus_wavefront`` below.  Where the JAX package expressed
-irregular indexing as one-hot compares and f32 matmuls (a TPU
-workaround, device_full.py:24-28, 105-142), they use integer gather /
-scatter: every scatter target is unique per window (an alignment path
-visits each column, node and edge at most once), except a dummy slot
-past the end that absorbs masked writes and is dropped.  The plain rank
-order is a sort by (column position, node id) where JAX and kernel 4
-count; the two are equal.
+The plain versions of kernels 4, 5 and 2 are ``_rank_arrays_batch``
+(and ``_step_head_batch`` for the step head), ``_merge_step``
+(``_merge`` and the state selection) and ``_consensus_wavefront``
+below.  Where the JAX package expressed irregular indexing as one-hot
+compares and f32 matmuls (a TPU workaround, device_full.py:24-28,
+105-142), they use integer gather / scatter: every scatter target is
+unique per window (an alignment path visits each column, node and edge
+at most once), except a dummy slot past the end that absorbs masked
+writes and is dropped.  The plain rank order is a sort by (column
+position, node id) where JAX and kernel 4 count; the two are equal.
 
 Everything runs on the device of the tensors it is given; the kernel
 wrappers take their plain versions only for CPU tensors.  The tile
@@ -52,7 +53,8 @@ from . import BIG, NCODES, NEG
 from .cuda_consensus import heaviest_bundle
 from .cuda_merge import merge_arm
 from .cuda_poa import poa_dp_batch
-from .cuda_rank import CONS_LEAVES, STEP_LEAVES, rank_arrays
+from .cuda_rank import (CONS_LEAVES, FIELDS, STEP_LEAVES, leaf_dtype,
+                        leaf_shape, rank_arrays, step_head)
 from .cuda_tb import poa_tb_matched
 
 _I32 = torch.int32
@@ -118,6 +120,33 @@ class RankArrays(NamedTuple):
     pred_cnt_r: torch.Tensor   # [B, N] (clamped >= 1)
     pred_w_r: torch.Tensor     # [B, N, P]
     is_end_r: torch.Tensor     # [B, N] bool
+
+
+class StepHead(NamedTuple):
+    """The head of an arm step (poa.cuda_rank.step_head): step k's arm of
+    every window and what kernels 1, 3 and 5 read of it, and the rank
+    arrays (the tile program's fixed buffers: head_buffers)."""
+    arm: torch.Tensor      # [B, L] i32: pool[rr], rr = max(idx[:, k], 0)
+    arm_len: torch.Tensor  # [B] i32: plen[rr] where active, else 0
+    mode: torch.Tensor     # [B] i32: amode[:, k]
+    w: torch.Tensor        # [B] i32: aw[:, k]
+    active: torch.Tensor   # [B] bool: k < narms and idx[:, k] >= 0
+    act: torch.Tensor      # [B] bool: active, an arm and a graph
+    nn_eff: torch.Tensor   # [B] i32: n_nodes where act, else 0
+    ra: RankArrays         # STEP_LEAVES (every leaf in _step_head_batch)
+
+
+def head_buffers(B: int, N: int, L: int, P: int, device) -> StepHead:
+    """Buffers for a step head of B windows (rank leaves: STEP_LEAVES,
+    the others None)."""
+    e = lambda *s, dtype=_I32: torch.empty(  # noqa: E731
+        s, dtype=dtype, device=device)
+    b8 = torch.bool
+    ra = RankArrays(*(e(*leaf_shape(f, B, N, P), dtype=leaf_dtype(f))
+                      if f in STEP_LEAVES else None for f in FIELDS))
+    return StepHead(arm=e(B, L), arm_len=e(B), mode=e(B), w=e(B),
+                    active=e(B, dtype=b8), act=e(B, dtype=b8), nn_eff=e(B),
+                    ra=ra)
 
 
 def _take(x, idx):
@@ -306,6 +335,13 @@ def _merge_step(st: PoaState, node_col_r, matched, arm, arm_len, w, active,
     return out._replace(ovf=st.ovf | (active & (arm_len > 0) & ovf))
 
 
+def _dp_rows(st: PoaState, arm_len, active):
+    """(act, nn_eff): windows done with their arms (or empty this round)
+    skip the DP (n_nodes -> 0) and start the traceback stopped."""
+    act = active & (arm_len > 0) & (st.n_nodes > 0)
+    return act, torch.where(act, st.n_nodes, 0)
+
+
 def _arm_step_batch(st: PoaState, arm, arm_len, mode, active, w=None, *,
                     N, L, P, m, n, g) -> PoaState:
     """One arm round for the whole window batch: rank (kernel 4), DP
@@ -313,18 +349,43 @@ def _arm_step_batch(st: PoaState, arm, arm_len, mode, active, w=None, *,
     a leading batch dim B; arm [B, L]; arm_len, mode, active, w [B].
     The merge updates ``st`` in place; returns it."""
     ra = rank_arrays(st, N, STEP_LEAVES)
-    # windows done with their arms (or empty this round) skip the DP
-    # (n_nodes -> 0) and start the traceback stopped
-    act = active & (arm_len > 0) & (st.n_nodes > 0)
-    nn_eff = torch.where(act, st.n_nodes, 0)
+    act, nn_eff = _dp_rows(st, arm_len, active)
+    w = torch.ones_like(arm_len) if w is None else w.contiguous()
+    return _arm_step_tail(st, ra, arm, arm_len, mode, w, active, act,
+                          nn_eff, N=N, L=L, P=P, m=m, n=n, g=g)
+
+
+def _arm_step_tail(st: PoaState, ra, arm, arm_len, mode, w, active, act,
+                   nn_eff, *, N, L, P, m, n, g) -> PoaState:
+    """The arm step after its rank: DP (kernel 1), traceback (kernel 3),
+    merge (kernel 5, in place; returns ``st``), on the step's rank
+    arrays ``ra`` and arm, as _arm_step_batch and the step head
+    (_step_head_batch) give them."""
     bp, max_row = poa_dp_batch(
         ra.node_code_r, ra.pred_rows, ra.pred_cnt_r, ra.is_end_r, nn_eff,
         arm, arm_len, mode, N=N, L=L, P=P, m=m, n=n, g=g)
     matched = _traceback_matched_batch(bp, ra.pred_rows, arm_len, mode,
                                        max_row, active=act, N=N, L=L, P=P)
-    w = torch.ones_like(arm_len) if w is None else w.contiguous()
     return merge_arm(st, ra.node_col_r, matched, arm, arm_len, w, active,
                      N=N, L=L, P=P)
+
+
+def _step_head_batch(st: PoaState, pool, plen, idx, amode, aw, narms, k, *,
+                     N) -> StepHead:
+    """The plain version of the step head (poa.cuda_rank.step_head): the
+    arm fetch of the tile program's step k (``k`` int32 [1]; hypo_tpu
+    device_full.py:756-765), act and nn_eff as _arm_step_batch computes
+    them, then every rank leaf (_rank_arrays_batch)."""
+    col = k.long().expand(idx.shape[0], 1)
+    rows = idx.gather(1, col)[:, 0]
+    active = (k < narms) & (rows >= 0)
+    rr = rows.clamp(min=0).long()
+    al = torch.where(active, plen[rr], 0)
+    act, nn_eff = _dp_rows(st, al, active)
+    return StepHead(arm=pool[rr].to(_I32), arm_len=al,
+                    mode=amode.gather(1, col)[:, 0].to(_I32),
+                    w=aw.gather(1, col)[:, 0], active=active, act=act,
+                    nn_eff=nn_eff, ra=_rank_arrays_batch(st, N))
 
 
 def _consensus_wavefront(pred_ranks, pred_w_r, pred_cnt_r, is_end_r,
@@ -606,10 +667,10 @@ def _replay(graph, launches) -> None:
 
 class _Block:
     """One device block of a tile program: fixed buffers for its rows of
-    the tile's inputs (the whole arm pool), the graph state, the arm
-    counter ``k`` (a device int32) and the packed output, and the three
-    parts of a tile that work on them in place: ``begin``, ``step`` and
-    ``finish``.  On a CUDA device each part is captured once in a CUDA
+    the tile's inputs (the whole arm pool), the graph state, the step
+    head's outputs, the arm counter ``k`` (a device int32) and the
+    packed output, and the three parts of a tile that work on them in
+    place: ``begin``, ``step`` and ``finish``.  On a CUDA device each part is captured once in a CUDA
     graph, at the block's first run, and replayed; elsewhere the parts
     are called as they are."""
 
@@ -623,6 +684,7 @@ class _Block:
         self.inputs = [torch.from_numpy(np.zeros(shapes[name], dt)).to(dev)
                        for name, dt in _TILE_INPUTS]
         self.st = init_state(N, P, rows, dev)
+        self.head = head_buffers(rows, N, L, P, dev)
         self.k = torch.zeros(1, dtype=_I32, device=dev)
         self.out = torch.zeros((rows, N // 2 + 4), dtype=torch.int8,
                                device=dev)
@@ -647,17 +709,14 @@ class _Block:
 
     def step(self) -> None:
         """One arm step (run_arm_steps' loop body) with the arm index k
-        read on the device: arm k of every window merged into its graph
-        (the state's buffers updated in place), then k += 1."""
-        pool, plen, idx, amode, aw, narms, _th = self.inputs
-        col = self.k.long().expand(idx.shape[0], 1)
-        rows = idx.gather(1, col)[:, 0]
-        active = (self.k < narms) & (rows >= 0)
-        rr = rows.clamp(min=0).long()
-        al = torch.where(active, plen[rr], 0)
-        _arm_step_batch(self.st, pool[rr].to(_I32), al,
-                        amode.gather(1, col)[:, 0].to(_I32), active,
-                        aw.gather(1, col)[:, 0], **self.kw)
+        read on the device: the step head (arm k of every window and the
+        rank, into the head's buffers), then the DP, walk and merge of
+        arm k into every graph (the state's buffers updated in place),
+        then k += 1."""
+        h = step_head(self.st, *self.inputs[:6], self.k, self.head,
+                      N=self.kw["N"])
+        _arm_step_tail(self.st, h.ra, h.arm, h.arm_len, h.mode, h.w,
+                       h.active, h.act, h.nn_eff, **self.kw)
         self.k += 1
 
     def finish(self) -> None:

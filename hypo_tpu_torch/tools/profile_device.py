@@ -28,7 +28,9 @@ own ``step`` graph (poa.device_full.build_tile_program at B, the graph
 the runner replays), its state set to the eager step's input and its
 counter to 0 before the first replay; its output is compared leaf by
 leaf with the eager step's, and the tool fails if they differ; its
-device kernels and copies per call are the step graph's kernel count.
+device kernels and copies per call are the step graph's kernel count,
+and its ``split`` the device ms a call of each kernel name in it (the
+first 60 characters; one more trace).
 ``tile``: one tile of
 the 64 windows' 6 arms tiled to B, eager (device_full.run_tile_eager)
 against the tile program (graph replays on CUDA, its parts called
@@ -241,6 +243,30 @@ def tile_row(B: int, reps: int, dev, inner: int) -> dict:
     return r
 
 
+def kernel_split(fn, dev, calls: int = 10) -> Optional[Dict[str, float]]:
+    """Device ms a call of fn() by device kernel or copy name (its first
+    60 characters), from one torch.profiler trace (CUDA activity only)
+    after a warm-up call; None off the card or when the trace holds no
+    device activity."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync(dev)
+    out: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name[:60]
+            out[name] = (out.get(name, 0.0) + (e.time_range.end
+                                               - e.time_range.start)
+                         / 1e3 / calls)
+    return out or None
+
+
 def row(name: str, fn, dev, reps: int, inner: int = 10) -> dict:
     ms = event_ms(fn, dev, reps=reps, inner=inner)
     dev_ms, per = profiled_ms(fn, dev)
@@ -285,8 +311,14 @@ def profile(B: int, reps: int, dev, inner: int = 10) -> List[dict]:
                  "ms": event_ms(replay, dev, reps=reps, inner=inner),
                  "device_ms": None, "device_activities_per_call": None}
         r["equal_to_eager"] = True
+        r["split"] = kernel_split(replay, dev)
         rows.append(r)
         log_row(r)
+        print(f"[prof] step (graph) split (device ms a call by kernel): "
+              + ("not measured" if r["split"] is None else json.dumps(
+                  {k: round(v, 5) for k, v in sorted(
+                      r["split"].items(), key=lambda kv: -kv[1])})),
+              flush=True)
     r = tile_row(B, reps, dev, inner)
     rows.append(r)
     for name in ("eager", "program"):

@@ -188,11 +188,55 @@ def consecutive_tiles(ci):
             class_tile(ci, 23, kgen))
 
 
+def ragged(tile, seed=0):
+    """``tile`` (tile_inputs' or class_tile's arrays) with the ragged arm
+    rows a tile may hold: every 7th window with no arm (narms 0, idx
+    -1), every 5th from window 1 with three arms or more a -1 at arm 1,
+    and every 6th from window 2 pool rows (of the first ``plen > 0``
+    ones) set past its narms."""
+    pool, plen, idx, amode, aw, narms, th = tile
+    idx, narms = idx.copy(), narms.copy()
+    B, K = idx.shape
+    idx[::7] = -1
+    narms[::7] = 0
+    hole = [b for b in range(1, B, 5) if narms[b] >= 3]
+    idx[hole, 1] = -1
+    rng = np.random.default_rng(seed)
+    for b in range(2, B, 6):
+        if b % 7:
+            idx[b, narms[b]:] = rng.integers(0, int((plen > 0).sum()),
+                                             K - narms[b])
+    return pool, plen, idx, amode, aw, narms, th
+
+
+def ragged_tiles(ci):
+    """Two tiles, in the order they go through one program: a ragged one
+    (ragged), then the second of consecutive_tiles."""
+    tile = class_tile(ci, 24, (5, 4)[ci], max_arms=(None, 3)[ci])
+    return ragged(tile, seed=24), consecutive_tiles(ci)[1]
+
+
 @functools.lru_cache(maxsize=None)
-def jax_tile_bytes(ci):
-    """hypo_tpu's tile program (XLA, one device) on consecutive_tiles."""
-    prog = DF.build_tile_program(**class_kw(ci), dp_impl="xla", ndev=1)
-    return [np.asarray(prog(*t)) for t in consecutive_tiles(ci)]
+def _jax_program(ci):
+    return DF.build_tile_program(**class_kw(ci), dp_impl="xla", ndev=1)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tile_bytes(ci, tiles=consecutive_tiles):
+    """hypo_tpu's tile program (XLA, one device) on ``tiles(ci)``."""
+    return [np.asarray(_jax_program(ci)(*t)) for t in tiles(ci)]
+
+
+def program_matches_jax(ci, ndev, tiles, want):
+    """One program instance takes ``tiles`` back to back (all queued
+    before the first output is read): every tile's bytes equal ``want``
+    (the JAX tile program's)."""
+    prog = TF.build_tile_program(**class_kw(ci), devices=[CPU] * ndev)
+    outs = [prog(*t) for t in tiles]
+    assert len(prog.blocks) == ndev
+    for i, (got, w) in enumerate(zip(outs, want)):
+        assert got.dtype == torch.int8 and tuple(got.shape) == w.shape
+        assert np.array_equal(got.numpy(), w), f"tile {i}"
 
 
 @pytest.mark.parametrize("ndev", [1, 2])
@@ -203,18 +247,26 @@ def test_replayable_program_matches_jax_over_consecutive_tiles(ci, ndev):
     looping to its own largest arm count; every tile's bytes equal the
     JAX tile program's.  JAX runs on one device: the split is the
     port's, and its bytes must not depend on it."""
-    kw = class_kw(ci)
-    N = kw["N"]
+    N = class_kw(ci)["N"]
     tiles = consecutive_tiles(ci)
     want = jax_tile_bytes(ci)
     assert want[0][0, N // 2 + 2] == 1            # overflowed
     assert tiles[1][5].max() < tiles[0][5].max()  # fewer arms than before
-    prog = TF.build_tile_program(**kw, devices=[CPU] * ndev)
-    outs = [prog(*t) for t in tiles]
-    assert len(prog.blocks) == ndev
-    for i, (got, w) in enumerate(zip(outs, want)):
-        assert got.dtype == torch.int8 and tuple(got.shape) == w.shape
-        assert np.array_equal(got.numpy(), w), f"tile {i}"
+    program_matches_jax(ci, ndev, tiles, want)
+
+
+@pytest.mark.parametrize("ndev", [1, 2])
+@pytest.mark.parametrize("ci", [0, 1])
+def test_replayable_program_matches_jax_over_ragged_tiles(ci, ndev):
+    """The same over ragged_tiles: windows with no arm, a -1 in
+    mid-row and rows past narms, whose arms the step head fetches as the
+    JAX package's tile body does."""
+    tiles = ragged_tiles(ci)
+    idx, narms = tiles[0][2], tiles[0][5]
+    assert (narms == 0).any() and ((idx[:, 1] < 0) & (narms > 1)).any()
+    assert (idx[np.arange(idx.shape[1])[None, :] >= narms[:, None]]
+            >= 0).any()
+    program_matches_jax(ci, ndev, tiles, jax_tile_bytes(ci, ragged_tiles))
 
 
 def test_a_step_that_always_reads_arm_0_fails_the_comparison(monkeypatch):

@@ -501,11 +501,13 @@ def test_kernels_match_plain_on_card(cuda_device, shape, monkeypatch):
 @pytest.mark.cuda
 def test_captured_step_counts_rank_and_merge_at_each_replay(cuda_device):
     """A tile through the tile program: the capture's eager call of each
-    part counts one launch, each replayed step one rank and one merge,
-    each finish one rank; the tile equals the eager tile."""
+    part counts one launch, each replayed step one kernel-4 launch (the
+    step head, which ranks) and one merge, each finish one rank; the
+    tile equals the eager tile."""
     from test_torch_device_full import class_kw, consecutive_tiles
     kw = class_kw(0)
-    counters = (cuda_rank.rank_arrays, cuda_merge.merge_arm)
+    counters = (cuda_rank.rank_arrays, cuda_rank.step_head,
+                cuda_merge.merge_arm)
     for c in counters:
         c.launches = 0
     prog = TF.build_tile_program(**kw, devices=cuda_device)
@@ -514,7 +516,8 @@ def test_captured_step_counts_rank_and_merge_at_each_replay(cuda_device):
     torch.cuda.synchronize()
     steps = sum(int(t[5].max()) for t in tiles)
     assert cuda_merge.merge_arm.launches == 1 + steps
-    assert cuda_rank.rank_arrays.launches == (1 + steps) + (1 + len(tiles))
+    assert cuda_rank.step_head.launches == 1 + steps
+    assert cuda_rank.rank_arrays.launches == 1 + len(tiles)
     eager_kw = {k: kw[k] for k in ("N", "L", "P", "m", "n", "g")}
     for t, out in zip(tiles, outs):
         assert torch.equal(out, TF.run_tile_eager(*t, **eager_kw,
