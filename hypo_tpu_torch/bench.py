@@ -16,27 +16,26 @@ engine in the same run: the counterpart of the repo root's ``bench.py``.
    input twice through ``pipeline.polish.polish``: **cold** (its first
    run, which pays the CUDA context, the kernels' build or load and the
    warm-up) and then **warm**.  For each it prints one JSON line:
-   windows, POA-stage seconds (unrounded: the child times the
-   Monitor's stage itself), total seconds, the md5, the runner's stats,
-   the kernels' launches and the pipeline table.  The table comes from timers the child wraps
-   around the runner's functions (as ``tools/long_window_stats.py``
-   spies on the engine); they read the host clock only and add no sync:
+   windows, POA-stage seconds (unrounded: the ``pipeline.poa`` span),
+   total seconds, the md5, the runner's stats, the kernels' launches
+   and the pipeline table.  The table sums the program's own spans
+   (``utils.trace``, turned on in the child; host clock only, no sync)
+   of the polish's main thread, with their counts:
 
-   - ``jobs``: the native job build (``host_runner.build_batch_jobs``);
-   - ``pack``: ``host_api.tile_pack``;
+   - ``jobs``: the native job build (``runner.jobs``);
+   - ``pack``: ``host_api.tile_pack`` (``tiles.pack``);
    - ``issue``: the tile program's calls, which queue each tile's work
-     on the device (``FullDeviceRunner._dispatch``, less the warm-up
-     wait);
+     on the device (``tiles.issue`` less ``tiles.warm_wait``);
    - ``warm_wait``: the first dispatch waiting for the warm-up thread;
    - ``drain``: the runner's synchronize before its first readback
-     (``_drain``);
-   - ``readback``: each tile's output to the host (``_readback``);
-   - ``finalize``: ``host_api.tile_finalize``;
+     (``tiles.drain``);
+   - ``readback``: each tile's output to the host (``tiles.readback``);
+   - ``finalize``: ``host_api.tile_finalize`` and the consensus
+     strings' assignment (``tiles.finalize``);
    - ``leftovers``: the host engine's windows (LONG, classless and
-     overflowed: ``materialize_arms_bulk`` and
-     ``ConsensusEngine.generate_consensus_batch``);
-   - ``rest``: the POA stage less all of the above (the consensus
-     strings' assignment, the arms' release, Python glue).
+     overflowed: ``runner.leftovers``);
+   - ``rest``: the POA stage less all of the above (the arms' release,
+     Python glue).
 
    With ``--kernel`` the child then times kernel 1 (the DP) at the
    class-0 tile shape (B=2048, N=256, L=126, P=8; a chain and a
@@ -90,6 +89,11 @@ TOTAL_RE = re.compile(r"Overall\. \[([0-9.]+) sec total")
 PINNED_MD5 = {(4_000_000, 1): "db85bbe32c2b4637f6e6a5e933e5c498"}
 BUCKETS = ("jobs", "pack", "issue", "warm_wait", "drain", "readback",
            "finalize", "leftovers", "rest")
+# the span each bucket sums (``issue`` less ``warm_wait``)
+BUCKET_SPANS = {"jobs": "runner.jobs", "pack": "tiles.pack",
+                "issue": "tiles.issue", "warm_wait": "tiles.warm_wait",
+                "drain": "tiles.drain", "readback": "tiles.readback",
+                "finalize": "tiles.finalize", "leftovers": "runner.leftovers"}
 KERNELS = ("poa_dp", "poa_tb", "consensus", "poa_rank", "poa_merge")
 
 
@@ -153,70 +157,18 @@ def genome_size(sim: str) -> int:
 
 # -- the device child ----------------------------------------------------------
 
-class Spans:
-    """Exclusive seconds and calls of spied functions, by bucket: a call
-    nested in another spied call counts in its own bucket only.  Calls
-    from other threads than the main one (the warm-up) are not
-    counted."""
-
-    def __init__(self):
-        self._stack: List[float] = []
-        self.reset()
-
-    def reset(self) -> None:
-        self.secs = {b: 0.0 for b in BUCKETS}
-        self.calls = {b: 0 for b in BUCKETS}
-        self.poa_s = 0.0    # the POA stage, unrounded (Monitor.stop)
-
-    def wrap(self, bucket: str, fn):
-        def call(*a, **k):
-            if threading.current_thread() is not threading.main_thread():
-                return fn(*a, **k)
-            t0 = time.perf_counter()
-            self._stack.append(0.0)
-            try:
-                return fn(*a, **k)
-            finally:
-                inner = self._stack.pop()
-                dt = time.perf_counter() - t0
-                self.secs[bucket] += dt - inner
-                self.calls[bucket] += 1
-                if self._stack:
-                    self._stack[-1] += dt
-        return call
-
-    def install(self) -> None:
-        """Wrap the runner's pipeline functions (for this process)."""
-        from .native import host_api
-        from .poa import engine, full_runner
-        from .utils.monitor import Monitor
-        FDR = full_runner.FullDeviceRunner
-        for owner, name, bucket in (
-                (full_runner, "build_batch_jobs", "jobs"),
-                (host_api, "tile_pack", "pack"),
-                (FDR, "_dispatch", "issue"),
-                (FDR, "_join_warm", "warm_wait"),
-                (FDR, "_drain", "drain"),
-                (FDR, "_readback", "readback"),
-                (host_api, "tile_finalize", "finalize"),
-                (full_runner, "materialize_arms_bulk", "leftovers"),
-                (engine.ConsensusEngine, "generate_consensus_batch",
-                 "leftovers")):
-            setattr(owner, name, self.wrap(bucket, getattr(owner, name)))
-        stop = Monitor.stop
-
-        def stage_stop(mon, msg):
-            # the Monitor prints the stage to 0.01 s; keep it unrounded
-            if msg.startswith("[hypo_tpu] POA over"):
-                self.poa_s += time.time() - (mon._start or mon._t0)
-            return stop(mon, msg)
-
-        Monitor.stop = stage_stop
-
-    def table(self) -> Dict[str, float]:
-        out = {b: self.secs[b] for b in BUCKETS if b != "rest"}
-        out["rest"] = self.poa_s - sum(out.values())
-        return out
+def pipeline_table(spans, thread: str):
+    """(seconds by bucket, spans by bucket, POA-stage seconds) of one
+    polish's spans on ``thread``."""
+    from .utils import trace
+    mine = [s for s in spans if s.thread == thread]
+    secs = {b: trace.seconds(mine, name) for b, name in BUCKET_SPANS.items()}
+    calls = {b: sum(s.name == name for s in mine)
+             for b, name in BUCKET_SPANS.items()}
+    secs["issue"] -= secs["warm_wait"]
+    poa_s = trace.seconds(mine, "pipeline.poa")
+    secs["rest"] = poa_s - sum(secs.values())
+    return secs, calls, poa_s
 
 
 def _kernel_rows(dev) -> List[dict]:
@@ -271,6 +223,7 @@ def child(opts) -> None:
     from .pipeline.polish import polish
     from .poa import cuda_consensus, cuda_merge, cuda_poa, cuda_rank, cuda_tb
     from .tools.timing import card, device_for
+    from .utils import trace
     dev = device_for(opts.device)
     # each kernel's wrappers (kernel 4 has the finish's rank and the
     # step head)
@@ -278,8 +231,7 @@ def child(opts) -> None:
                 (cuda_consensus.heaviest_bundle,),
                 (cuda_rank.rank_arrays, cuda_rank.step_head),
                 (cuda_merge.merge_arm,))
-    spans = Spans()
-    spans.install()
+    trace.enable()
     size = genome_size(opts.sim)
     name = card(dev)
     for run in ("cold", "warm"):
@@ -288,7 +240,7 @@ def child(opts) -> None:
             "-o", out, "--device-poa", "--aux-dir",
             os.path.join(opts.out_dir, f"aux_{run}")]
         flags = flags_from_args(build_parser().parse_args(argv))
-        spans.reset()
+        trace.RECORDER.reset()
         for ws in counters:
             for c in ws:
                 c.launches = 0
@@ -306,14 +258,16 @@ def child(opts) -> None:
         wall = time.time() - t0
         with open(log_path) as fh:
             nwin, _poa_s, total_s = stage_times(fh.read())
+        table, calls, poa_s = pipeline_table(
+            trace.RECORDER.spans, threading.current_thread().name)
         print(json.dumps({
             "run": run, "device": name, "windows": nwin,
-            "poa_s": spans.poa_s, "total_s": total_s, "wall_s": wall,
-            "md5": md5(out), "windows_per_s": nwin / spans.poa_s,
+            "poa_s": poa_s, "total_s": total_s, "wall_s": wall,
+            "md5": md5(out), "windows_per_s": nwin / poa_s,
             "launches": dict(zip(KERNELS, (sum(c.launches for c in ws)
                                            for ws in counters))),
             "stats": p.device_runner.stats,
-            "pipeline": spans.table(), "calls": dict(spans.calls)}),
+            "pipeline": table, "calls": calls}),
             flush=True)
     if opts.kernel:
         if dev.type != "cuda":

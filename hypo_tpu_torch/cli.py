@@ -25,8 +25,14 @@ also joins them in a torch.distributed (gloo) process group.  Mode
 ``HYPO_POA_NDEV`` of them (``CUDA_VISIBLE_DEVICES`` chooses which are
 visible).
 
+``--trace-out PATH`` turns on the port's span recorder
+(``utils.trace``) and writes its spans and counters to PATH when the
+polish ends, as Chrome trace JSON (Perfetto or chrome://tracing load
+it).
+
 ``build_parser`` and ``flags_from_args`` are copied from hypo_tpu/cli.py
-(only the help texts name the CUDA device and torch.distributed).
+(only the help texts name the CUDA device and torch.distributed), with
+``--trace-out`` added.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from typing import List, Optional
 from .config import (STAGE_BEG, InputFlags, ScoreParams, get_expected_file_sz,
                      get_kmer_len)
 from .pipeline.polish import Polisher, polish
+from .utils import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,6 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--inspect", action="store_true",
                     help="write aux/regions.bed and aux/inspect.txt "
                          "(reference generate_inspect_file artifacts)")
+    ap.add_argument("--trace-out", default="", metavar="PATH",
+                    help="record the polish's spans and counters and "
+                         "write them to PATH as Chrome trace JSON")
     return ap
 
 
@@ -158,12 +168,21 @@ def flags_from_args(args) -> InputFlags:
 
 
 def run(argv: Optional[List[str]] = None) -> Polisher:
-    """Parse ``argv``, polish, print the device path's stats to stderr;
-    returns the Polisher."""
-    flags = flags_from_args(build_parser().parse_args(argv))
+    """Parse ``argv``, polish, print the device path's stats to stderr
+    (and write the trace, with ``--trace-out``); returns the Polisher."""
+    args = build_parser().parse_args(argv)
+    flags = flags_from_args(args)
     print(f"[hypo_tpu_torch] k={flags.k} output={flags.output_filename}",
           file=sys.stderr)
-    p = polish(flags)
+    if args.trace_out:
+        trace.enable()
+        try:
+            p = polish(flags)
+        finally:
+            trace.disable()
+            trace.write_chrome(args.trace_out)
+    else:
+        p = polish(flags)
     if p.device_runner is not None:
         print(f"[hypo_tpu_torch] device POA stats ({flags.device_poa_mode}): "
               f"{json.dumps(p.device_runner.stats)}", file=sys.stderr)

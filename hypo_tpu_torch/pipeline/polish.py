@@ -27,7 +27,10 @@ the FASTA, and rank 0 gathers the shards in draft order.
 Copied from hypo_tpu/pipeline/polish.py with its two device hooks
 replaced (``_resolve_device_poa``: auto keeps the host engine, where
 the JAX package probed for a TPU; ``_make_device_runner``: the port's
-runners on the CUDA devices, or on the CPU device a test passes).
+runners on the CUDA devices, or on the CPU device a test passes), and
+with spans (``utils.trace``): the root ``polish`` from the Polisher's
+construction to ``Overall``, ``pipeline.runner_setup``, and one
+``pipeline.*`` span per Monitor stage.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from ..kmers.solid import SolidKmers
 from ..poa.engine import ConsensusEngine
 from ..segment.support import (update_minimisers_support,
                                update_solidkmers_support)
+from ..utils import trace
 from ..utils.monitor import Monitor
 from .alignment import Alignment
 from .contig import Contig
@@ -275,13 +279,14 @@ class Polisher:
             from ..parallel import distributed as dist
             dist.initialize(f.coordinator, f.num_processes, f.process_id)
         self._resolve_device_poa()
-        self.device_runner = self._make_device_runner()
-        mon.start()
+        with trace.span("pipeline.runner_setup"):
+            self.device_runner = self._make_device_runner()
+        mon.start("pipeline.solid_kmers")
         sk = self._get_solid_kmers()
         print(f"[hypo_tpu] solid (canonical, non-HP) kmers: "
               f"{sk.get_num_solid_kmers()}")
 
-        mon.start()
+        mon.start("pipeline.load_contigs")
         cname_to_id: Dict[str, int] = {}
         for cid, (name, seq) in enumerate(read_fastx(f.draft_filename)):
             cname_to_id[name] = cid
@@ -299,7 +304,7 @@ class Polisher:
         else:
             shard_lo, shard_hi = 0, n_contigs
 
-        mon.start()
+        mon.start("pipeline.solid_positions")
         for ctg in self.contigs[shard_lo:shard_hi]:
             ctg.find_solid_pos(sk)
         mon.stop("[hypo_tpu] Found solid positions. ")
@@ -320,7 +325,7 @@ class Polisher:
             self._polish_batch(sr_stream, lr_stream, engine, lo, hi)
             lo = hi
 
-        mon.start()
+        mon.start("pipeline.write")
         shard = self.contigs[shard_lo:shard_hi]
         if f.num_processes > 1:
             from ..parallel.distributed import gather_polished_fasta
@@ -337,6 +342,8 @@ class Polisher:
                         ((c.name, c.polished_seq(self.no_long_reads))
                          for c in shard))
         mon.stop("[hypo_tpu] Wrote results. ")
+        mon.root.set(draft_bp=sum(c.length for c in self.contigs),
+                     contigs=n_contigs)
         mon.total("[hypo_tpu] Overall. ")
 
     def _polish_batch(self, sr_stream, lr_stream, engine, lo: int,
@@ -344,7 +351,7 @@ class Polisher:
         f = self.flags
         mon = self.monitor
         ws = f.window_settings
-        mon.start()
+        mon.start("pipeline.load_short_alignments")
         clens = [c.length for c in self.contigs]
         loaded, num_alns, num_invalid = sr_stream.load_until(
             hi, f.map_qual_th, contig_lens=clens)
@@ -356,7 +363,7 @@ class Polisher:
         from ..native import host_api
         native_host = host_api.available()
 
-        mon.start()
+        mon.start("pipeline.kmer_support")
         for cid in range(lo, hi):
             if native_host:
                 host_api.skmer_support(self.contigs[cid], store[cid], f.k,
@@ -366,7 +373,7 @@ class Polisher:
                                           f.k)
         mon.stop("[hypo_tpu] Solid kmer support. ")
 
-        mon.start()
+        mon.start("pipeline.strong_regions")
         for cid in range(lo, hi):
             self.contigs[cid].prepare_for_division(f.k, ws)
         num_sr = sum(c.num_sr for c in self.contigs[lo:hi])
@@ -374,7 +381,7 @@ class Polisher:
         print(f"[hypo_tpu] SRs: {num_sr} covering {len_sr} bp")
         mon.stop("[hypo_tpu] Strong regions. ")
 
-        mon.start()
+        mon.start("pipeline.minimizer_support")
         for cid in range(lo, hi):
             if native_host:
                 from ..config import MINIMIZER_SETTINGS as MS
@@ -384,7 +391,7 @@ class Polisher:
                 update_minimisers_support(self.contigs[cid], store[cid])
         mon.stop("[hypo_tpu] Minimizer support. ")
 
-        mon.start()
+        mon.start("pipeline.window_division")
         for cid in range(lo, hi):
             self.contigs[cid].divide_into_regions(ws)
         mon.stop("[hypo_tpu] Window division. ")
@@ -404,7 +411,7 @@ class Polisher:
         fast_tiles = (native_host
                       and hasattr(tile_runner, "supports_native_tiles")
                       and tile_runner.supports_native_tiles())
-        mon.start()
+        mon.start("pipeline.short_arms")
         arm_tables: Dict[int, tuple] = {}
         for cid in range(lo, hi):
             ctg = self.contigs[cid]
@@ -429,7 +436,7 @@ class Polisher:
             host_api.clear_pack_cache()
         mon.stop("[hypo_tpu] Short arms. ")
 
-        mon.start()
+        mon.start("pipeline.window_fill")
         for cid in range(lo, hi):
             if fast_tiles:
                 self.contigs[cid].add_arm_table_counts(arm_tables.pop(cid))
@@ -444,7 +451,7 @@ class Polisher:
         mon.stop("[hypo_tpu] Window fill. ")
 
         if lr_stream is not None:
-            mon.start()
+            mon.start("pipeline.long_arms")
             lloaded, _n, _ninv = lr_stream.load_until(
                 hi, f.map_qual_th, norm_edit_th=f.norm_edit_th,
                 contig_lens=clens)
@@ -470,7 +477,7 @@ class Polisher:
                 host_api.clear_pack_cache()
             mon.stop("[hypo_tpu] Long arms. ")
 
-        mon.start()
+        mon.start("pipeline.poa")
         nwin = 0
         if fast_tiles:
             nwin += tile_runner.run_polish_batch(

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import trace
 from . import BIG, NCODES, NEG
 from .cuda_consensus import heaviest_bundle
 from .cuda_merge import merge_arm
@@ -726,10 +727,17 @@ class _Block:
 
     def parts(self):
         """(begin, step, finish) as this block runs them: on CUDA, the
-        replays of each part's graph (captured at the first call)."""
-        if self._parts is None:
-            self._parts = (self._capture() if self.dev.type == "cuda"
-                           else (self.begin, self.step, self.finish))
+        replays of each part's graph (captured at the first call, in a
+        ``tiles.capture`` span with ``capture_stats``' seconds and the
+        reserved bytes' growth)."""
+        if self._parts is None and self.dev.type == "cuda":
+            with trace.span("tiles.capture") as sp:
+                self._parts = self._capture()
+                st = self.capture_stats
+                sp.set(seconds=st["seconds"], reserved_growth=(
+                    st["reserved_after"] - st["reserved_before"]))
+        elif self._parts is None:
+            self._parts = (self.begin, self.step, self.finish)
         return self._parts
 
     def _capture(self):
@@ -777,7 +785,9 @@ class _Block:
 class TileProgram:
     """The tile program of one shape class over a list of devices (see
     build_tile_program).  Its device blocks are made at the first
-    call."""
+    call.  With the recorder on (``utils.trace``) each call counts every
+    block's window steps, and those of them in which a row had an arm,
+    from the host's narms."""
 
     def __init__(self, *, N, L, K, P, m, n, g, B, A, devices):
         self.devices = as_devices(devices)
@@ -806,6 +816,12 @@ class TileProgram:
         for d, block in enumerate(self.blocks):
             r = slice(d * blk, (d + 1) * blk)
             kmax = int(narms_h[r].max()) if blk else 0
+            if trace.active():
+                # every row runs kmax arm steps; a row's step does work
+                # while the row has an arm left
+                trace.count("tiles.window_steps", blk * kmax)
+                trace.count("tiles.active_window_steps",
+                            np.minimum(narms_h[r], kmax).sum())
             with _on(block.dev):
                 block.load((pool, plen, idx[r], amode[r], aw[r], narms[r],
                             th[r]), keep)

@@ -40,21 +40,22 @@ Both paths dispatch every tile of a call (of a wave, in run_windows)
 before they read the first one back, as the JAX package does: the tile
 program queues its work without a host sync (pinned uploads, the arm
 loop's bound from the host's narms), then the runner drains the devices
-(``_drain``) and reads the tiles back in order (``_readback``).  With
+(``_drain``) and reads the tiles back in order (``_readback``).  Both
+open spans (``utils.trace``: ``runner.*`` and ``tiles.*``; the warm-up
+thread's under the span that called ``warm``).  With
 ``HYPO_POA_DEBUG`` set, both print the JAX runner's stage lines
-(``[poa] ...``) to stdout.  ``warm()`` builds kernels 1-3 and runs the
-tile program (which builds kernels 4 and 5 at their first launch) once
-on a zero tile in a background thread, as the JAX
-package does, so that both (and the capture of the program's graphs)
-overlap the host stages; the first dispatch waits for the thread and
-raises the error it met, if any.
+(``[poa] ...``) to stdout, with the seconds of those spans.
+``warm()`` builds kernels 1-3 and runs the tile program (which builds
+kernels 4 and 5 at their first launch) once on a zero tile in a
+background thread, as the JAX package does, so that both (and the
+capture of the program's graphs) overlap the host stages; the first
+dispatch waits for the thread and raises the error it met, if any.
 """
 from __future__ import annotations
 
 import math
 import os
 import threading
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -62,6 +63,7 @@ import torch
 
 from ..config import ScoreParams
 from ..native import host_api
+from ..utils import trace
 from . import GLOBAL_ALPHABET, GLOBAL_CODE, NW
 from .batch import DeviceConsensusRunner, _Job
 from .cuda_poa import check_scores
@@ -178,21 +180,14 @@ class FullDeviceRunner(DeviceConsensusRunner):
         captures the program's graphs, so they are made here, behind the
         host stages.  The first dispatch joins the thread and raises the
         error it met, if any; unlike the JAX package's, a failed warm-up
-        is never swallowed.  Returns the thread."""
+        is never swallowed.  The thread's spans hang under the span open
+        here.  Returns the thread."""
+        parent = trace.current()
+
         def run():
             try:
-                super(FullDeviceRunner, self).warm()
-                for ci in classes:
-                    L, N, K, B, A = self._class_shape(ci)
-                    idx = np.full((B, K), -1, np.int32)
-                    narms = np.zeros(B, np.int32)
-                    narms[0] = 1
-                    self._program(ci, self.short_scores)(
-                        np.zeros((A, L), np.int8), np.zeros(A, np.int32),
-                        idx, np.zeros((B, K), np.int8),
-                        np.zeros((B, K), np.int32), narms,
-                        np.zeros(B, np.int32))
-                self._drain()
+                with trace.under(parent):
+                    self._warm_classes(classes)
             except Exception as e:  # raised by the first dispatch
                 self._warm_error = e
 
@@ -202,12 +197,27 @@ class FullDeviceRunner(DeviceConsensusRunner):
         self._warm_thread.start()
         return self._warm_thread
 
+    def _warm_classes(self, classes) -> None:
+        super().warm()
+        for ci in classes:
+            L, N, K, B, A = self._class_shape(ci)
+            idx = np.full((B, K), -1, np.int32)
+            narms = np.zeros(B, np.int32)
+            narms[0] = 1
+            self._program(ci, self.short_scores)(
+                np.zeros((A, L), np.int8), np.zeros(A, np.int32), idx,
+                np.zeros((B, K), np.int8), np.zeros((B, K), np.int32),
+                narms, np.zeros(B, np.int32))
+        self._drain()
+
+
     def _join_warm(self) -> None:
         """Wait for the warm-up thread, if one is running, and raise the
         error it met."""
         t, self._warm_thread = self._warm_thread, None
         if t is not None:
-            t.join()
+            with trace.span("tiles.warm_wait"):
+                t.join()
         err, self._warm_error = self._warm_error, None
         if err is not None:
             raise RuntimeError("FullDeviceRunner: the warm-up failed") \
@@ -286,34 +296,36 @@ class FullDeviceRunner(DeviceConsensusRunner):
 
     def run_polish_batch(self, contigs) -> int:
         debug = _debug()
-        t0 = time.time()
-        jobs, job_refs, fallback, host_windows, count = build_batch_jobs(
-            contigs, self.stats)
+        with trace.span("runner.jobs", timed=debug) as sp:
+            jobs, job_refs, fallback, host_windows, count = \
+                build_batch_jobs(contigs, self.stats)
         self.stats["host_long_windows"] += len(host_windows)
         if debug:
             nj = jobs.n_jobs if jobs is not None else 0
-            _log(f"native jobs: {time.time()-t0:.2f}s ({nj} jobs, "
+            _log(f"native jobs: {sp.seconds:.2f}s ({nj} jobs, "
                  f"{len(host_windows)} host long, {len(fallback)} "
                  f"pre-fallbacks)")
         fallback.extend(self._run_tiles(jobs, job_refs, debug))
         # host-engine leftovers: LONG windows (arms already materialized)
         # + fallbacks (arms rebuilt from the flat table, bulk per contig)
-        t0 = time.time()
         self.stats["host_fallbacks"] += len(fallback)
-        by_ctg: Dict[int, List[int]] = {}
-        ctg_of = {}
-        for ctg, wi in fallback:
-            by_ctg.setdefault(id(ctg), []).append(wi)
-            ctg_of[id(ctg)] = ctg
-        for key, wis in by_ctg.items():
-            ctg = ctg_of[key]
-            materialize_arms_bulk(ctg, wis)
-            host_windows.extend(ctg.windows[wi] for wi in wis)
-        if host_windows:
-            self.host_engine.generate_consensus_batch(host_windows,
-                                                      self.threads)
+        with trace.span("runner.leftovers", timed=debug) as sp:
+            with trace.span("runner.materialize"):
+                by_ctg: Dict[int, List[int]] = {}
+                ctg_of = {}
+                for ctg, wi in fallback:
+                    by_ctg.setdefault(id(ctg), []).append(wi)
+                    ctg_of[id(ctg)] = ctg
+                for key, wis in by_ctg.items():
+                    ctg = ctg_of[key]
+                    materialize_arms_bulk(ctg, wis)
+                    host_windows.extend(ctg.windows[wi] for wi in wis)
+            if host_windows:
+                with trace.span("runner.engine"):
+                    self.host_engine.generate_consensus_batch(host_windows,
+                                                              self.threads)
         if debug and (fallback or host_windows):
-            _log(f"host leftovers: {time.time()-t0:.2f}s "
+            _log(f"host leftovers: {sp.seconds:.2f}s "
                  f"({len(fallback)} fallbacks)")
         return count
 
@@ -323,61 +335,71 @@ class FullDeviceRunner(DeviceConsensusRunner):
         dispatched, the devices drained, then each tile read back and
         finalized in order.  Returns the (contig, window) refs left for
         the host engine (no class, or overflowed)."""
-        t0 = time.time()
         left: List = []
         handles = []
-        if jobs is not None:
-            nj = jobs.n_jobs
-            job_th = np.zeros(nj, np.int32)  # short windows keep every base
-            need_n = np.maximum(2 * jobs.job_maxlen, jobs.job_maxlen + 32)
-            cls = np.full(nj, -1, np.int64)
-            for ci, (L, N, K, _B, _A) in enumerate(CLASSES):
-                ok = ((cls < 0) & (jobs.job_maxlen <= L) & (need_n <= N)
-                      & (jobs.job_next <= K))
-                cls[ok] = ci
-            left = [job_refs[j] for j in np.nonzero(cls < 0)[0]]
-            for ci in range(len(CLASSES)):
-                idx = np.nonzero(cls == ci)[0]
-                if not len(idx):
-                    continue
-                order = np.ascontiguousarray(
-                    idx[np.lexsort((-jobs.job_maxlen[idx],
-                                    -jobs.job_next[idx]))], np.int64)
-                L, N, K, B, A = self._class_shape(ci)
-                lo = 0
-                while lo < len(order):
-                    hi, *arrays, row_of = host_api.tile_pack(
-                        order, lo, jobs, job_th, B, K, A, L, self.ndev)
-                    handles.append((self._dispatch(ci, self.short_scores,
-                                                   arrays),
-                                    order, lo, hi, row_of, N))
-                    self._count_tile(ci, row_of[:hi - lo])
-                    lo = hi
+        with trace.span("tiles.dispatch", timed=debug) as sp:
+            if jobs is not None:
+                left = self._dispatch_jobs(jobs, job_refs, handles)
         if debug:
-            _log(f"pack+dispatch: {time.time()-t0:.2f}s "
+            _log(f"pack+dispatch: {sp.seconds:.2f}s "
                  f"({len(handles)} tiles)")
-        t0 = time.time()
-        self._drain()
+        with trace.span("tiles.drain", timed=debug) as sp:
+            self._drain()
         if debug:
-            _log(f"device drain: {time.time()-t0:.2f}s")
-        t0 = time.time()
-        for handle, order, lo, hi, row_of, N in handles:
-            packed = self._readback(handle)
-            cnt = hi - lo
-            out, out_len = host_api.tile_finalize(
-                packed, row_of[:cnt], cnt, 0, N)
-            for t in range(cnt):
-                ctg, wi = job_refs[order[lo + t]]
-                if out_len[t] < 0:
-                    self.stats["full_overflows"] += 1
-                    left.append((ctg, wi))
-                else:
-                    ctg.windows[wi].consensus = \
-                        out[t, :out_len[t]].tobytes().decode("latin1")
+            _log(f"device drain: {sp.seconds:.2f}s")
+        with trace.span("tiles.collect", timed=debug) as sp:
+            for handle, order, lo, hi, row_of, N in handles:
+                with trace.span("tiles.readback"):
+                    packed = self._readback(handle)
+                with trace.span("tiles.finalize"):
+                    cnt = hi - lo
+                    out, out_len = host_api.tile_finalize(
+                        packed, row_of[:cnt], cnt, 0, N)
+                    for t in range(cnt):
+                        ctg, wi = job_refs[order[lo + t]]
+                        if out_len[t] < 0:
+                            self.stats["full_overflows"] += 1
+                            left.append((ctg, wi))
+                        else:
+                            ctg.windows[wi].consensus = \
+                                out[t, :out_len[t]].tobytes().decode(
+                                    "latin1")
         if debug:
-            _log(f"readback+finalize: {time.time()-t0:.2f}s "
+            _log(f"readback+finalize: {sp.seconds:.2f}s "
                  f"stats={self.stats}")
         return left
+
+    def _dispatch_jobs(self, jobs, job_refs, handles: List) -> List:
+        """Class, pack and dispatch every job of ``jobs`` that fits a
+        shape class, each tile's handle appended to ``handles``; returns
+        the refs of the jobs that fit none."""
+        nj = jobs.n_jobs
+        job_th = np.zeros(nj, np.int32)  # short windows keep every base
+        need_n = np.maximum(2 * jobs.job_maxlen, jobs.job_maxlen + 32)
+        cls = np.full(nj, -1, np.int64)
+        for ci, (L, N, K, _B, _A) in enumerate(CLASSES):
+            ok = ((cls < 0) & (jobs.job_maxlen <= L) & (need_n <= N)
+                  & (jobs.job_next <= K))
+            cls[ok] = ci
+        for ci in range(len(CLASSES)):
+            idx = np.nonzero(cls == ci)[0]
+            if not len(idx):
+                continue
+            order = np.ascontiguousarray(
+                idx[np.lexsort((-jobs.job_maxlen[idx],
+                                -jobs.job_next[idx]))], np.int64)
+            L, N, K, B, A = self._class_shape(ci)
+            lo = 0
+            while lo < len(order):
+                with trace.span("tiles.pack"):
+                    hi, *arrays, row_of = host_api.tile_pack(
+                        order, lo, jobs, job_th, B, K, A, L, self.ndev)
+                with trace.span("tiles.issue"):
+                    handle = self._dispatch(ci, self.short_scores, arrays)
+                handles.append((handle, order, lo, hi, row_of, N))
+                self._count_tile(ci, row_of[:hi - lo])
+                lo = hi
+        return [job_refs[j] for j in np.nonzero(cls < 0)[0]]
 
     # -- the path without the native host library ----------------------------
     @staticmethod
@@ -423,7 +445,61 @@ class FullDeviceRunner(DeviceConsensusRunner):
         rest in waves of device tiles, all tiles of a wave dispatched
         before the first is read back."""
         debug = _debug()
-        t0 = time.time()
+        with trace.span("runner.jobs", timed=debug) as sp:
+            jobs, host_long, count = self._window_jobs(windows)
+            if host_long:
+                self.stats["host_long_windows"] += len(host_long)
+                with trace.span("runner.engine"):
+                    self.host_engine.generate_consensus_batch(host_long,
+                                                              self.threads)
+        if debug:
+            _log(f"build jobs: {sp.seconds:.2f}s ({len(jobs)} jobs, "
+                 f"{len(host_long)} host long)")
+        active = jobs
+        wave = 0
+        while active:
+            nxt: List[_Job] = []
+            with trace.span("runner.classify", timed=debug) as sp:
+                groups = self._classify(active, nxt)
+            if debug:
+                ng = sum(len(g) for g in groups.values())
+                _log(f"wave {wave}: classify {sp.seconds:.2f}s "
+                     f"({ng} device jobs)")
+            handles = []
+            with trace.span("tiles.dispatch", timed=debug) as sp:
+                for (ci, scores), grp in sorted(groups.items(),
+                                                key=lambda kv: kv[0]):
+                    grp.sort(key=lambda j: (-len(j.ext),
+                                            -max(len(s) for s, _m, _w
+                                                 in j.ext)))
+                    lo = 0
+                    while lo < len(grp):
+                        tile, hi = self._take_tile(grp, lo, ci)
+                        handles.append(
+                            (tile, self._dispatch_tile(tile, ci, scores)))
+                        lo = hi
+            if debug:
+                _log(f"wave {wave}: pack+dispatch {sp.seconds:.2f}s "
+                     f"({len(handles)} tiles)")
+            # drain the devices before the first readback, then read
+            # every tile (no dispatches in between)
+            with trace.span("tiles.drain", timed=debug) as sp:
+                self._drain()
+            if debug:
+                _log(f"wave {wave}: device drain {sp.seconds:.2f}s")
+            with trace.span("tiles.collect", timed=debug) as sp:
+                for tile, handle in handles:
+                    nxt.extend(self._collect_full(tile, handle))
+            if debug:
+                _log(f"wave {wave}: readback+finalize "
+                     f"{sp.seconds:.2f}s  stats={self.stats}")
+            active = nxt
+            wave += 1
+        return count
+
+    def _window_jobs(self, windows):
+        """The device jobs of ``windows``, trivial windows settled:
+        (jobs, LONG windows for the host engine, windows counted)."""
         jobs: List[_Job] = []
         host_long = []
         count = 0
@@ -446,69 +522,29 @@ class FullDeviceRunner(DeviceConsensusRunner):
             j = self._build_job(w)
             if j is not None:
                 jobs.append(j)
-        if host_long:
-            self.stats["host_long_windows"] += len(host_long)
-            self.host_engine.generate_consensus_batch(host_long,
-                                                      self.threads)
-        if debug:
-            _log(f"build jobs: {time.time()-t0:.2f}s ({len(jobs)} jobs, "
-                 f"{len(host_long)} host long)")
-        active = jobs
-        wave = 0
-        while active:
-            t0 = time.time()
-            nxt: List[_Job] = []
-            groups: Dict[tuple, List[_Job]] = {}
-            for job in active:
-                job.ext = _dedup(job.seqs)
-                if self._trivial(job):
-                    self.stats["trivial_windows"] += 1
-                    spawned = self._finish_trivial(job)
-                    if spawned is not None:
-                        nxt.append(spawned)
-                    continue
-                ci = self._class_for(job)
-                if ci is None:
-                    spawned = self._host_finish(job)
-                    if spawned is not None:
-                        nxt.append(spawned)
-                    continue
-                groups.setdefault((ci, job.scores), []).append(job)
-            if debug:
-                ng = sum(len(g) for g in groups.values())
-                _log(f"wave {wave}: classify {time.time()-t0:.2f}s "
-                     f"({ng} device jobs)")
-            t0 = time.time()
-            handles = []
-            for (ci, scores), grp in sorted(groups.items(),
-                                            key=lambda kv: kv[0]):
-                grp.sort(key=lambda j: (-len(j.ext),
-                                        -max(len(s) for s, _m, _w
-                                             in j.ext)))
-                lo = 0
-                while lo < len(grp):
-                    tile, hi = self._take_tile(grp, lo, ci)
-                    handles.append(
-                        (tile, self._dispatch_tile(tile, ci, scores)))
-                    lo = hi
-            if debug:
-                _log(f"wave {wave}: pack+dispatch {time.time()-t0:.2f}s "
-                     f"({len(handles)} tiles)")
-            # drain the devices before the first readback, then read
-            # every tile (no dispatches in between)
-            t0 = time.time()
-            self._drain()
-            if debug:
-                _log(f"wave {wave}: device drain {time.time()-t0:.2f}s")
-            t0 = time.time()
-            for tile, handle in handles:
-                nxt.extend(self._collect_full(tile, handle))
-            if debug:
-                _log(f"wave {wave}: readback+finalize "
-                     f"{time.time()-t0:.2f}s  stats={self.stats}")
-            active = nxt
-            wave += 1
-        return count
+        return jobs, host_long, count
+
+    def _classify(self, active: List[_Job], nxt: List[_Job]):
+        """A wave's jobs deduplicated; trivial and classless ones
+        finished on the host (the jobs they spawn appended to ``nxt``),
+        the rest grouped by (class, scores)."""
+        groups: Dict[tuple, List[_Job]] = {}
+        for job in active:
+            job.ext = _dedup(job.seqs)
+            if self._trivial(job):
+                self.stats["trivial_windows"] += 1
+                spawned = self._finish_trivial(job)
+                if spawned is not None:
+                    nxt.append(spawned)
+                continue
+            ci = self._class_for(job)
+            if ci is None:
+                spawned = self._host_finish(job)
+                if spawned is not None:
+                    nxt.append(spawned)
+                continue
+            groups.setdefault((ci, job.scores), []).append(job)
+        return groups
 
     def _take_tile(self, grp: List[_Job], lo: int, ci: int):
         """Take as many jobs from grp[lo:] as fit one tile's window and
@@ -532,6 +568,15 @@ class FullDeviceRunner(DeviceConsensusRunner):
         """Pack one tile (deduplicated arm pool + per-window index table,
         window j in row _row_order(...)[j]) and launch it; returns
         (``_dispatch``'s handle, the rows)."""
+        with trace.span("tiles.pack"):
+            arrays, rows = self._pack_tile(grp, ci)
+        self._count_tile(ci, rows)
+        with trace.span("tiles.issue"):
+            return self._dispatch(ci, scores, arrays), rows
+
+    def _pack_tile(self, grp: List[_Job], ci: int):
+        """One tile's arrays (the program's inputs) and the rows of its
+        windows."""
         L, N, K, B, A = self._class_shape(ci)
         pool_idx: Dict[str, int] = {}
         strs: List[str] = []
@@ -565,13 +610,20 @@ class FullDeviceRunner(DeviceConsensusRunner):
             within = np.arange(len(codes)) - np.repeat(starts, lens)
             dst = np.repeat(np.arange(len(strs)) * L, lens) + within
             pool.reshape(-1)[dst] = codes
-        self._count_tile(ci, rows)
-        return self._dispatch(ci, scores, (pool, plen, idxt, amode, aw,
-                                           narms, th)), rows
+        return (pool, plen, idxt, amode, aw, narms, th), rows
 
     def _collect_full(self, grp: List[_Job], handle) -> List[_Job]:
         handle, rows = handle
-        packed = self._readback(handle)
+        with trace.span("tiles.readback"):
+            packed = self._readback(handle)
+        with trace.span("tiles.finalize"):
+            return self._finalize_tile(grp, rows, packed)
+
+    def _finalize_tile(self, grp: List[_Job], rows,
+                       packed: np.ndarray) -> List[_Job]:
+        """Each window's consensus from a tile's packed output, or the
+        host engine's where the tile overflowed; returns the jobs they
+        spawn."""
         half = packed.shape[1] - 4
         nib = packed[:, :half].view(np.uint8)
         codes = np.empty((packed.shape[0], 2 * half), np.uint8)

@@ -12,15 +12,21 @@ per-window materialize-then-batch path (engine.generate_consensus_batch)
 which remains for LONG windows and fallbacks.  Reference analog: the
 OMP per-window POA loop over spoa, src/Hypo.cpp:237-247.
 
-Copied from hypo_tpu/poa/host_runner.py.
+Copied from hypo_tpu/poa/host_runner.py, with spans (``utils.trace``):
+``runner.jobs_native`` around each native job build, and in
+``HostTileRunner`` ``runner.jobs``, ``runner.jobs_consensus`` and
+``runner.leftovers`` (``runner.materialize``, ``runner.engine``), whose
+seconds the ``HYPO_POA_DEBUG`` lines print.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
 
 from ..config import ScoreParams
+from ..utils import trace
 from .engine import ConsensusEngine
 
 
@@ -112,8 +118,9 @@ def build_batch_jobs(contigs, stats=None):
                 continue
             wflag[i] = 1
             presuf[i] = 1 if (w.num_pre > 0 or w.num_suf > 0) else 0
-        jobs = host_api.tile_jobs(ctg.codes, ctg.reg_starts, wflag,
-                                  presuf, table, abuf, aoff)
+        with trace.span("runner.jobs_native"):
+            jobs = host_api.tile_jobs(ctg.codes, ctg.reg_starts, wflag,
+                                      presuf, table, abuf, aoff)
         consbuf = jobs.cons_buf.tobytes().decode("latin1")
         direct = np.nonzero(jobs.flag == 1)[0]
         off = jobs.cons_off
@@ -151,48 +158,48 @@ class HostTileRunner:
         return host_api.available() and poa_api.available()
 
     def run_polish_batch(self, contigs) -> int:
-        import os
-        import time
         from ..native.api import native_jobs_consensus
         debug = bool(os.environ.get("HYPO_POA_DEBUG"))
-        t0 = time.time()
-        jobs, job_refs, fallback, host_windows, count = build_batch_jobs(
-            contigs, self.stats)
+        with trace.span("runner.jobs", timed=debug) as span:
+            jobs, job_refs, fallback, host_windows, count = \
+                build_batch_jobs(contigs, self.stats)
         if debug:
             nj = jobs.n_jobs if jobs is not None else 0
-            print(f"[poa] native jobs: {time.time()-t0:.2f}s "
+            print(f"[poa] native jobs: {span.seconds:.2f}s "
                   f"({nj} jobs, {len(host_windows)} host long, "
                   f"{len(fallback)} pre-fallbacks)", flush=True)
-        t0 = time.time()
-        if jobs is not None:
-            sp = self.sp
-            buf, off = native_jobs_consensus(
-                jobs, (sp.sr_match, sp.sr_mismatch, sp.sr_gap),
-                self.threads)
-            self.stats["native_jobs"] += jobs.n_jobs
-            for j, (ctg, wi) in enumerate(job_refs):
-                ctg.windows[wi].consensus = \
-                    buf[off[j]:off[j + 1]].decode("latin1")
+        with trace.span("runner.jobs_consensus", timed=debug) as span:
+            if jobs is not None:
+                sp = self.sp
+                buf, off = native_jobs_consensus(
+                    jobs, (sp.sr_match, sp.sr_mismatch, sp.sr_gap),
+                    self.threads)
+                self.stats["native_jobs"] += jobs.n_jobs
+                for j, (ctg, wi) in enumerate(job_refs):
+                    ctg.windows[wi].consensus = \
+                        buf[off[j]:off[j + 1]].decode("latin1")
         if debug:
-            print(f"[poa] jobs consensus: {time.time()-t0:.2f}s",
+            print(f"[poa] jobs consensus: {span.seconds:.2f}s",
                   flush=True)
-        t0 = time.time()
-        by_ctg: Dict[int, List[int]] = {}
-        ctg_of = {}
-        for ctg, wi in fallback:
-            by_ctg.setdefault(id(ctg), []).append(wi)
-            ctg_of[id(ctg)] = ctg
-        for key, wis in by_ctg.items():
-            ctg = ctg_of[key]
-            materialize_arms_bulk(ctg, wis)
-            host_windows.extend(ctg.windows[wi] for wi in wis)
-        self.stats["fallbacks"] += len(fallback)
-        if host_windows:
-            self.stats["host_long_windows"] += len(host_windows)
-            self.host_engine.generate_consensus_batch(host_windows,
-                                                      self.threads)
+        with trace.span("runner.leftovers", timed=debug) as span:
+            with trace.span("runner.materialize"):
+                by_ctg: Dict[int, List[int]] = {}
+                ctg_of = {}
+                for ctg, wi in fallback:
+                    by_ctg.setdefault(id(ctg), []).append(wi)
+                    ctg_of[id(ctg)] = ctg
+                for key, wis in by_ctg.items():
+                    ctg = ctg_of[key]
+                    materialize_arms_bulk(ctg, wis)
+                    host_windows.extend(ctg.windows[wi] for wi in wis)
+            self.stats["fallbacks"] += len(fallback)
+            if host_windows:
+                self.stats["host_long_windows"] += len(host_windows)
+                with trace.span("runner.engine"):
+                    self.host_engine.generate_consensus_batch(
+                        host_windows, self.threads)
         if debug and (fallback or host_windows):
-            print(f"[poa] host leftovers: {time.time()-t0:.2f}s "
+            print(f"[poa] host leftovers: {span.seconds:.2f}s "
                   f"({len(fallback)} fallbacks) stats={self.stats}",
                   flush=True)
         return count
