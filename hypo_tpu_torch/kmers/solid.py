@@ -7,7 +7,8 @@ suk/include/suk/SolidKmers.hpp + src/SolidKmers.cpp).  Selection rule
 terminal (first two or last two bases equal — a strand-symmetric test);
 bits set for BOTH forward and revcomp packings.
 
-Copied from hypo_tpu/kmers/solid.py.
+Copied from hypo_tpu/kmers/solid.py, with the counter's thread count
+(``threads``) passed through.
 """
 from __future__ import annotations
 
@@ -58,12 +59,15 @@ class SolidKmers:
     # -- construction -----------------------------------------------------
     def initialise(self, filenames: List[str], coverage: int,
                    exclude_hp: bool = True,
-                   counter: Optional[KmerCounter] = None) -> "SolidKmers":
+                   counter: Optional[KmerCounter] = None,
+                   threads: int = 0) -> "SolidKmers":
         """Count reads, find cutoffs, and fill the bitmask.
-        Mirrors SolidKmers::initialise minus the KMC subprocess."""
+        Mirrors SolidKmers::initialise minus the KMC subprocess.
+        ``threads``: the native counter's (0: OpenMP's default)."""
         hist_freq = 4 * coverage
         if counter is None:
-            counter = count_files(filenames, self.k, cap=hist_freq + 1)
+            counter = count_files(filenames, self.k, cap=hist_freq + 1,
+                                  threads=threads)
         codes, counts = counter.items()
         return self.initialise_from_counts(codes, counts, coverage,
                                            exclude_hp)

@@ -666,16 +666,26 @@ class FastxCodeStream:
         self._h = self._lib.hypo_fastx_open(path.encode())
         if not self._h:
             raise IOError(f"cannot open {path}")
-        self._buf = np.empty(chunk, np.uint8)
+        self._chunk = chunk
+
+    def read(self, buf: np.ndarray) -> int:
+        """Decode the next codes into ``buf`` (uint8, C-contiguous, at
+        most its length); returns how many, 0 at the end.  Any buffer
+        will do, so a caller can keep several in flight."""
+        if not self._h:
+            return 0
+        return max(0, int(self._lib.hypo_fastx_codes(
+            self._h, _ptr(buf, _u8p), len(buf))))
 
     def __iter__(self):
-        lib = self._lib
+        """Chunks as views of one buffer, which the next chunk
+        overwrites."""
+        buf = np.empty(self._chunk, np.uint8)
         while True:
-            n = lib.hypo_fastx_codes(self._h, _ptr(self._buf, _u8p),
-                                     len(self._buf))
-            if n <= 0:
+            n = self.read(buf)
+            if n == 0:
                 break
-            yield self._buf[:int(n)]
+            yield buf[:n]
         self.close()
 
     def close(self) -> None:

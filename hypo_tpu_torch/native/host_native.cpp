@@ -1,4 +1,5 @@
-// Copied from hypo_tpu/native/host_native.cpp.
+// Copied from hypo_tpu/native/host_native.cpp; FastxReader::next_line
+// finds newlines with memchr.
 // Native host runtime for hypo_tpu: the OpenMP-parallel per-alignment
 // stages that the reference runs as C++ loops (reference
 // src/Alignment.cpp:65-220 support updates, external/suk k-mer counting).
@@ -426,17 +427,21 @@ struct FastxReader {
         return true;
     }
 
-    // returns [p0, p1) of the next line (without newline), or false
+    // returns [p0, p1) of the next line (without newline), or false.
+    // memchr finds the newline; after a refill (which moves the line's
+    // start to 0) only the new bytes are searched.
     bool next_line(size_t& p0, size_t& p1) {
+        size_t from = lo;
         while (true) {
-            for (size_t i = lo; i < hi; ++i) {
-                if (buf[i] == '\n') {
-                    p0 = lo;
-                    p1 = i;
-                    lo = i + 1;
-                    return true;
-                }
+            const char* nl = static_cast<const char*>(
+                std::memchr(buf.data() + from, '\n', hi - from));
+            if (nl) {
+                p0 = lo;
+                p1 = (size_t)(nl - buf.data());
+                lo = p1 + 1;
+                return true;
             }
+            from = hi - lo;
             if (!refill()) {
                 if (hi > lo) { p0 = lo; p1 = hi; lo = hi; return true; }
                 return false;

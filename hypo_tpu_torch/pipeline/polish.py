@@ -1,10 +1,17 @@
 """The polishing orchestrator (reference src/Hypo.cpp Hypo::polish).
 
 Pipeline per batch of contigs:
-  solid k-mers -> contigs -> solid positions -> [stream short BAM] ->
+  contigs -> solid k-mers -> solid positions -> [stream short BAM] ->
   k-mer support -> SR/MegaWindows -> minimizer support -> window division
   -> short arms -> window fill/prune -> [optional long pass] -> POA
   consensus -> FASTA.
+
+The input pass overlaps where both of its readers are native (the host
+library and the native BAM stream): the FASTQ is inflated on a thread of
+its own while the k-mers are counted (kmers.counting.decoded_chunks),
+and the first batch's short-read alignments load on another thread
+(``_Prefetch``) from the draft's load until ``_polish_batch`` joins it.
+Otherwise the BAM loads in ``_polish_batch``, after the k-mer stage.
 
 Stage checkpointing mirrors the reference's aux/ dir (-i): solid kmers in
 ``aux/solid_kmers.npz`` and ``aux/stage.txt`` appended per stage
@@ -30,11 +37,13 @@ the JAX package probed for a TPU; ``_make_device_runner``: the port's
 runners on the CUDA devices, or on the CPU device a test passes), and
 with spans (``utils.trace``): the root ``polish`` from the Polisher's
 construction to ``Overall``, ``pipeline.runner_setup``, and one
-``pipeline.*`` span per Monitor stage.
+``pipeline.*`` span per Monitor stage; with the draft's load moved ahead
+of the k-mer stage, and the first batch's alignments prefetched.
 """
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -159,6 +168,42 @@ class _BamStream:
         return store, n, n_invalid
 
 
+class _Prefetch:
+    """The first batch's short-read alignments, loaded on a thread of
+    their own (``pipeline.bam_prefetch``, under the span open here):
+    the stream skipped to ``lo`` when it is past 0, then
+    ``load_until(hi, ...)``.  ``join`` waits for them and returns
+    ``load_until``'s result, or raises what the load raised.  The
+    stream is the thread's until then."""
+
+    def __init__(self, stream, lo: int, hi: int, min_mapq: int,
+                 contig_lens: List[int]):
+        self._result = self._error = None
+        parent = trace.current()
+
+        def run() -> None:
+            try:
+                with trace.under(parent), trace.span("pipeline.bam_prefetch"):
+                    if lo > 0:
+                        stream.skip_until(lo)
+                    self._result = stream.load_until(
+                        hi, min_mapq, contig_lens=contig_lens)
+            except BaseException as e:  # raised by join
+                self._error = e
+
+        self.thread = threading.Thread(target=run, daemon=True,
+                                       name="hypo-bam-prefetch")
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+        result, self._result = self._result, None
+        return result
+
+
 def cuda_device() -> torch.device:
     """The current CUDA device; exits with an error when there is none."""
     if not torch.cuda.is_available():
@@ -212,7 +257,8 @@ class Polisher:
             if len(f.sr_filenames) >= f.num_processes:
                 mine = shard_files(f.sr_filenames, f.process_id,
                                    f.num_processes)
-                counter = (count_files(mine, f.k, cap=cap) if mine
+                counter = (count_files(mine, f.k, cap=cap,
+                                       threads=f.threads) if mine
                            else KmerCounter(f.k, cap=cap))
             else:  # fewer files than ranks: stride over reads instead
                 counter = count_files(f.sr_filenames, f.k, cap=cap,
@@ -224,7 +270,8 @@ class Polisher:
             sk = SolidKmers(f.k).initialise_from_counts(codes, counts,
                                                         f.cov)
         else:
-            sk = SolidKmers(f.k).initialise(f.sr_filenames, f.cov)
+            sk = SolidKmers(f.k).initialise(f.sr_filenames, f.cov,
+                                            threads=f.threads)
         # checkpoints are written by rank 0 only (shared-fs race; every
         # process computes the identical bitmask deterministically)
         if f.intermed and f.process_id == 0:
@@ -281,11 +328,6 @@ class Polisher:
         self._resolve_device_poa()
         with trace.span("pipeline.runner_setup"):
             self.device_runner = self._make_device_runner()
-        mon.start("pipeline.solid_kmers")
-        sk = self._get_solid_kmers()
-        print(f"[hypo_tpu] solid (canonical, non-HP) kmers: "
-              f"{sk.get_num_solid_kmers()}")
-
         mon.start("pipeline.load_contigs")
         cname_to_id: Dict[str, int] = {}
         for cid, (name, seq) in enumerate(read_fastx(f.draft_filename)):
@@ -304,26 +346,24 @@ class Polisher:
         else:
             shard_lo, shard_hi = 0, n_contigs
 
-        mon.start("pipeline.solid_positions")
-        for ctg in self.contigs[shard_lo:shard_hi]:
-            ctg.find_solid_pos(sk)
-        mon.stop("[hypo_tpu] Found solid positions. ")
-
         batch = f.processing_batch_size or max(1, shard_hi - shard_lo)
         sr_stream = open_stream(f.sr_bam_filename, cname_to_id)
-        lr_stream = (None if self.no_long_reads
-                     else open_stream(f.lr_bam_filename, cname_to_id))
-        if shard_lo > 0:
+        # a pure-Python load holds the GIL, and would only contend
+        first = None
+        if (isinstance(sr_stream, _NativeStream) and sr_stream.flat
+                and shard_lo < shard_hi):
+            first = _Prefetch(sr_stream, shard_lo,
+                              min(shard_hi, shard_lo + batch),
+                              f.map_qual_th,
+                              [c.length for c in self.contigs])
+        elif shard_lo > 0:
             sr_stream.skip_until(shard_lo)
-            if lr_stream is not None:
-                lr_stream.skip_until(shard_lo)
-        engine = ConsensusEngine(f.score_params)
-
-        lo = shard_lo
-        while lo < shard_hi:
-            hi = min(shard_hi, lo + batch)
-            self._polish_batch(sr_stream, lr_stream, engine, lo, hi)
-            lo = hi
+        try:
+            self._polish_shard(sr_stream, first, cname_to_id, shard_lo,
+                               shard_hi, batch)
+        finally:
+            if first is not None:   # an error left it running
+                first.thread.join()
 
         mon.start("pipeline.write")
         shard = self.contigs[shard_lo:shard_hi]
@@ -346,15 +386,54 @@ class Polisher:
                      contigs=n_contigs)
         mon.total("[hypo_tpu] Overall. ")
 
+    def _polish_shard(self, sr_stream, first: Optional[_Prefetch],
+                      cname_to_id: Dict[str, int], shard_lo: int,
+                      shard_hi: int, batch: int) -> None:
+        """The k-mer stage, the solid positions and the batches of
+        contigs [shard_lo, shard_hi); ``first``, when there is one, is
+        the first batch's alignments, loading meanwhile."""
+        f = self.flags
+        mon = self.monitor
+        mon.start("pipeline.solid_kmers")
+        sk = self._get_solid_kmers()
+        print(f"[hypo_tpu] solid (canonical, non-HP) kmers: "
+              f"{sk.get_num_solid_kmers()}")
+
+        mon.start("pipeline.solid_positions")
+        for ctg in self.contigs[shard_lo:shard_hi]:
+            ctg.find_solid_pos(sk)
+        mon.stop("[hypo_tpu] Found solid positions. ")
+
+        lr_stream = (None if self.no_long_reads
+                     else open_stream(f.lr_bam_filename, cname_to_id))
+        if shard_lo > 0 and lr_stream is not None:
+            lr_stream.skip_until(shard_lo)
+        engine = ConsensusEngine(f.score_params)
+
+        lo = shard_lo
+        while lo < shard_hi:
+            hi = min(shard_hi, lo + batch)
+            self._polish_batch(sr_stream, lr_stream, engine, lo, hi,
+                               first if lo == shard_lo else None)
+            lo = hi
+
     def _polish_batch(self, sr_stream, lr_stream, engine, lo: int,
-                      hi: int) -> None:
+                      hi: int, prefetched: Optional[_Prefetch] = None
+                      ) -> None:
+        """Contigs [lo, hi); ``prefetched`` holds their short-read
+        alignments when a thread loaded them (the span
+        ``pipeline.load_short_alignments`` is then the wait for it)."""
         f = self.flags
         mon = self.monitor
         ws = f.window_settings
         mon.start("pipeline.load_short_alignments")
         clens = [c.length for c in self.contigs]
-        loaded, num_alns, num_invalid = sr_stream.load_until(
-            hi, f.map_qual_th, contig_lens=clens)
+        if prefetched is not None:
+            loaded, num_alns, num_invalid = prefetched.join()
+            trace.count("pipeline.alignments_prefetched", 1)
+        else:
+            loaded, num_alns, num_invalid = sr_stream.load_until(
+                hi, f.map_qual_th, contig_lens=clens)
         store: Dict[int, List[Alignment]] = {c: [] for c in range(lo, hi)}
         store.update(loaded)
         mon.stop(f"[hypo_tpu] Loaded {num_alns} short alignments "

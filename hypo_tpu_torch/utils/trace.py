@@ -19,7 +19,7 @@ allocation, no lock, no profiler range.  On, and while a
 ``torch.profiler`` session runs, each span also opens a profiler range
 of its name (a ``RecordFunction``, as ``record_function`` opens), so the
 span sits on the profiler's timeline beside the device's kernels and
-copies.  The range is of the op kind (``_RecordFunctionFast``): a
+copies; the profiler records the ranges of the thread that started it.  The range is of the op kind (``_RecordFunctionFast``): a
 ``record_function`` range is a user annotation, which the profiler also
 mirrors onto the device's timeline as a ``gpu_user_annotation``
 activity around the kernels launched inside it, and a reader of the
@@ -34,6 +34,15 @@ Where the spans are (names fixed, with no counts in them):
 - ``polish``, the root (``pipeline.polish.Polisher``: construction to
   the ``Overall`` line; attributes draft_bp, contigs), with
   ``pipeline.runner_setup`` and each Monitor stage (``pipeline.*``);
+  ``pipeline.load_short_alignments`` is only the wait for the prefetch
+  when a thread loaded the batch;
+- the input pass's producers, each on a thread of its own:
+  ``pipeline.fastq_decode`` (one chunk of reads inflated and parsed,
+  ``kmers.counting.decoded_chunks``; under ``pipeline.solid_kmers``) and
+  ``pipeline.bam_prefetch`` (the first batch's short-read alignments
+  loaded, ``pipeline.polish._Prefetch``; under ``polish``), and the
+  counter ``pipeline.alignments_prefetched`` (1 a batch whose alignments
+  the prefetch loaded);
 - ``runner.jobs`` (the job build; child ``runner.jobs_native``, each
   native ``tile_jobs`` call), ``runner.jobs_consensus`` (the host tile
   runner), ``runner.classify`` (a wave of ``run_windows``),
