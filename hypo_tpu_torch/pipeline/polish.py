@@ -531,29 +531,31 @@ class Polisher:
 
         if lr_stream is not None:
             mon.start("pipeline.long_arms")
-            lloaded, _n, _ninv = lr_stream.load_until(
-                hi, f.map_qual_th, norm_edit_th=f.norm_edit_th,
-                contig_lens=clens)
-            lstore: Dict[int, List[Alignment]] = {
-                c: [] for c in range(lo, hi)}
-            lstore.update(lloaded)
-            for cid in range(lo, hi):
-                self.contigs[cid].prepare_long_windows(ws)
-            for cid in range(lo, hi):
-                ctg = self.contigs[cid]
+            with trace.span("pipeline.long_load"):
+                lloaded, _n, _ninv = lr_stream.load_until(
+                    hi, f.map_qual_th, norm_edit_th=f.norm_edit_th,
+                    contig_lens=clens)
+            with trace.span("pipeline.long_find"):
+                lstore: Dict[int, List[Alignment]] = {
+                    c: [] for c in range(lo, hi)}
+                lstore.update(lloaded)
+                for cid in range(lo, hi):
+                    self.contigs[cid].prepare_long_windows(ws)
+                for cid in range(lo, hi):
+                    ctg = self.contigs[cid]
+                    if native_host:
+                        table = host_api.find_arms(
+                            ctg, lstore[cid], f.k, MS2.k, True,
+                            ARMS_SETTINGS.short_arm_coef, f.threads)
+                        ctg.add_arm_table(lstore[cid], table)
+                        ctg.fill_long_windows([])
+                    else:
+                        for aln in lstore[cid]:
+                            aln.find_long_arms(ctg)
+                        ctg.fill_long_windows(lstore[cid])
+                    lstore[cid] = []
                 if native_host:
-                    table = host_api.find_arms(
-                        ctg, lstore[cid], f.k, MS2.k, True,
-                        ARMS_SETTINGS.short_arm_coef, f.threads)
-                    ctg.add_arm_table(lstore[cid], table)
-                    ctg.fill_long_windows([])
-                else:
-                    for aln in lstore[cid]:
-                        aln.find_long_arms(ctg)
-                    ctg.fill_long_windows(lstore[cid])
-                lstore[cid] = []
-            if native_host:
-                host_api.clear_pack_cache()
+                    host_api.clear_pack_cache()
             mon.stop("[hypo_tpu] Long arms. ")
 
         mon.start("pipeline.poa")

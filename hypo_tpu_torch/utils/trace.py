@@ -43,6 +43,10 @@ Where the spans are (names fixed, with no counts in them):
   loaded, ``pipeline.polish._Prefetch``; under ``polish``), and the
   counter ``pipeline.alignments_prefetched`` (1 a batch whose alignments
   the prefetch loaded);
+- the long-read pass (``-B``), under ``pipeline.long_arms``:
+  ``pipeline.long_load`` (the long-read BAM's batch loaded, with the
+  MAPQ and ``-n`` filters) and ``pipeline.long_find`` (pseudo-windows,
+  long arms, window fill);
 - ``runner.jobs`` (the job build; child ``runner.jobs_native``, each
   native ``tile_jobs`` call), ``runner.jobs_consensus`` (the host tile
   runner), ``runner.classify`` (a wave of ``run_windows``),

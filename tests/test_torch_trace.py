@@ -48,6 +48,8 @@ TABLE = {"polish", "pipeline.runner_setup", *STAGES,
          "tiles.warm_wait", "tiles.drain", "tiles.readback",
          "tiles.finalize", "runner.leftovers", "runner.materialize",
          "runner.engine"}
+# the hybrid polish's long-read pass, under ``pipeline.long_arms``
+LONG = {"pipeline.long_load", "pipeline.long_find"}
 
 
 @pytest.fixture
@@ -147,7 +149,8 @@ def _roots(spans):
 def test_every_span_of_the_table_appears(traced, run):
     spans, _c, _p = traced[run]
     names = {s.name for s in spans}
-    want = TABLE if run == "hybrid" else TABLE - {"pipeline.long_arms"}
+    want = (TABLE | LONG if run == "hybrid"
+            else TABLE - {"pipeline.long_arms"})
     assert want <= names, sorted(want - names)
     assert "tiles.capture" not in names       # CUDA graphs: card only
     assert len(_roots(spans)) == 1
