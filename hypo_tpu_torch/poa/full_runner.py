@@ -28,8 +28,12 @@ only, with ndev > 1).
 ``HYPO_POA_NDEV`` caps ndev at its value, which must not exceed the
 devices the runner is given.  LONG windows (wtype != 0),
 windows that fit no shape class and windows that overflow a class cap
-on the device go to the host engine (engine.ConsensusEngine), as in the
-JAX package: that routing is part of the algorithm.  ``stats`` counts
+on the device go to the host, as in the JAX package: that routing is
+part of the algorithm.  In ``run_polish_batch`` the classless and
+overflowed windows keep their jobs, which the native jobs engine
+finishes (host_runner.finish_leftovers; the same consensus as the
+classic engine's), and LONG windows and the job builder's pre-fallbacks
+go to the classic engine (engine.ConsensusEngine).  ``stats`` counts
 them: ``run_polish_batch`` puts LONG windows under host_long_windows and
 the rest under host_fallbacks (the JAX package adds both to
 host_long_windows); ``run_windows`` counts as the JAX package does,
@@ -69,7 +73,10 @@ from .batch import DeviceConsensusRunner, _Job
 from .cuda_poa import check_scores
 from .device_full import TileProgram, as_devices, build_tile_program
 from .engine import CURATE_THRESH, ConsensusEngine
-from .host_runner import build_batch_jobs, materialize_arms_bulk
+# materialize_arms_bulk stays importable here: polishbench's traced run
+# wraps it by this module's name
+from .host_runner import (build_batch_jobs, finish_leftovers,  # noqa: F401
+                          materialize_arms_bulk)
 
 # shape classes: (L arm-length cap, N node/column cap, K distinct-arm
 # cap, B batch tile, A arm-pool cap) — hypo_tpu full_runner.CLASSES
@@ -305,41 +312,30 @@ class FullDeviceRunner(DeviceConsensusRunner):
             _log(f"native jobs: {sp.seconds:.2f}s ({nj} jobs, "
                  f"{len(host_windows)} host long, {len(fallback)} "
                  f"pre-fallbacks)")
-        fallback.extend(self._run_tiles(jobs, job_refs, debug))
-        # host-engine leftovers: LONG windows (arms already materialized)
-        # + fallbacks (arms rebuilt from the flat table, bulk per contig)
-        self.stats["host_fallbacks"] += len(fallback)
+        left = self._run_tiles(jobs, job_refs, debug)
+        # host leftovers: the jobs left (no class, or overflowed) on the
+        # native jobs engine; LONG windows (arms already materialized) and
+        # pre-fallbacks (arms rebuilt from the flat table) on the classic
+        self.stats["host_fallbacks"] += len(fallback) + len(left)
         with trace.span("runner.leftovers", timed=debug) as sp:
-            with trace.span("runner.materialize"):
-                by_ctg: Dict[int, List[int]] = {}
-                ctg_of = {}
-                for ctg, wi in fallback:
-                    by_ctg.setdefault(id(ctg), []).append(wi)
-                    ctg_of[id(ctg)] = ctg
-                for key, wis in by_ctg.items():
-                    ctg = ctg_of[key]
-                    materialize_arms_bulk(ctg, wis)
-                    host_windows.extend(ctg.windows[wi] for wi in wis)
-            if host_windows:
-                with trace.span("runner.engine"):
-                    self.host_engine.generate_consensus_batch(host_windows,
-                                                              self.threads)
-        if debug and (fallback or host_windows):
+            finish_leftovers(self.host_engine, self.threads, fallback,
+                             host_windows, jobs, job_refs, left)
+        if debug and (fallback or left or host_windows):
             _log(f"host leftovers: {sp.seconds:.2f}s "
-                 f"({len(fallback)} fallbacks)")
+                 f"({len(fallback) + len(left)} fallbacks)")
         return count
 
-    def _run_tiles(self, jobs, job_refs, debug: bool = False) -> List:
+    def _run_tiles(self, jobs, job_refs, debug: bool = False) -> List[int]:
         """Run every job (of ``jobs``, or none) that fits a shape class
         through device tiles, assigning consensus in place: every tile
         dispatched, the devices drained, then each tile read back and
-        finalized in order.  Returns the (contig, window) refs left for
-        the host engine (no class, or overflowed)."""
-        left: List = []
+        finalized in order.  Returns the indices of the jobs left for
+        the host (no class, then overflowed)."""
+        left: List[int] = []
         handles = []
         with trace.span("tiles.dispatch", timed=debug) as sp:
             if jobs is not None:
-                left = self._dispatch_jobs(jobs, job_refs, handles)
+                left = self._dispatch_jobs(jobs, handles)
         if debug:
             _log(f"pack+dispatch: {sp.seconds:.2f}s "
                  f"({len(handles)} tiles)")
@@ -356,10 +352,11 @@ class FullDeviceRunner(DeviceConsensusRunner):
                     out, out_len = host_api.tile_finalize(
                         packed, row_of[:cnt], cnt, 0, N)
                     for t in range(cnt):
-                        ctg, wi = job_refs[order[lo + t]]
+                        j = int(order[lo + t])
+                        ctg, wi = job_refs[j]
                         if out_len[t] < 0:
                             self.stats["full_overflows"] += 1
-                            left.append((ctg, wi))
+                            left.append(j)
                         else:
                             ctg.windows[wi].consensus = \
                                 out[t, :out_len[t]].tobytes().decode(
@@ -369,10 +366,10 @@ class FullDeviceRunner(DeviceConsensusRunner):
                  f"stats={self.stats}")
         return left
 
-    def _dispatch_jobs(self, jobs, job_refs, handles: List) -> List:
+    def _dispatch_jobs(self, jobs, handles: List) -> List[int]:
         """Class, pack and dispatch every job of ``jobs`` that fits a
         shape class, each tile's handle appended to ``handles``; returns
-        the refs of the jobs that fit none."""
+        the indices of the jobs that fit none."""
         nj = jobs.n_jobs
         job_th = np.zeros(nj, np.int32)  # short windows keep every base
         need_n = np.maximum(2 * jobs.job_maxlen, jobs.job_maxlen + 32)
@@ -399,7 +396,7 @@ class FullDeviceRunner(DeviceConsensusRunner):
                 handles.append((handle, order, lo, hi, row_of, N))
                 self._count_tile(ci, row_of[:hi - lo])
                 lo = hi
-        return [job_refs[j] for j in np.nonzero(cls < 0)[0]]
+        return np.nonzero(cls < 0)[0].tolist()
 
     # -- the path without the native host library ----------------------------
     @staticmethod

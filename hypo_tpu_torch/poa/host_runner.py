@@ -9,14 +9,20 @@ Python only assigns the finished consensus strings.
 
 This is the production HOST engine for short windows; it replaces the
 per-window materialize-then-batch path (engine.generate_consensus_batch)
-which remains for LONG windows and fallbacks.  Reference analog: the
+which remains for LONG windows and pre-fallbacks.  Reference analog: the
 OMP per-window POA loop over spoa, src/Hypo.cpp:237-247.
+
+``finish_leftovers`` is both runners' host-engine route: short windows
+that have a job (FullDeviceRunner's classless and overflowed ones) go
+to the native jobs engine, pre-fallbacks and LONG windows to the
+classic engine.
 
 Copied from hypo_tpu/poa/host_runner.py, with spans (``utils.trace``):
 ``runner.jobs_native`` around each native job build, and in
 ``HostTileRunner`` ``runner.jobs``, ``runner.jobs_consensus`` and
-``runner.leftovers`` (``runner.materialize``, ``runner.engine``), whose
-seconds the ``HYPO_POA_DEBUG`` lines print.
+``runner.leftovers`` (``runner.materialize``, ``runner.engine``,
+``runner.fallback_jobs``), whose seconds the ``HYPO_POA_DEBUG`` lines
+print.
 """
 from __future__ import annotations
 
@@ -56,6 +62,38 @@ def merge_tile_jobs(parts):
         base += p.ext_off[-1]
     out.ext_off = np.concatenate(xo)
     out.ext_buf = np.concatenate([p.ext_buf for p in parts])
+    return out
+
+
+def _gather_ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Indices of the ranges [starts[i], starts[i] + lens[i]), in
+    order, concatenated."""
+    ends = np.cumsum(lens)
+    return (np.arange(int(ends[-1]) if len(ends) else 0, dtype=np.int64)
+            + np.repeat(starts - (ends - lens), lens))
+
+
+def take_jobs(jobs, idx):
+    """The jobs ``idx`` of a merged TileJobs (indices, in that order) as
+    a TileJobs of their own: each job's ext entries and their codes
+    gathered as they are, nothing rebuilt."""
+    from ..native import host_api
+    idx = np.asarray(idx, np.int64)
+    out = host_api.TileJobs.__new__(host_api.TileJobs)
+    out.n_jobs = len(idx)
+    out.job_next = jobs.job_next[idx]
+    out.job_maxlen = jobs.job_maxlen[idx]
+    jeo = jobs.job_ext_off
+    ne = jeo[idx + 1] - jeo[idx]
+    out.job_ext_off = np.concatenate(([0], np.cumsum(ne))).astype(np.int64)
+    e = _gather_ranges(jeo[idx], ne)
+    out.ext_len = jobs.ext_len[e]
+    out.ext_mode = jobs.ext_mode[e]
+    out.ext_w = jobs.ext_w[e]
+    xo = jobs.ext_off
+    nb = xo[e + 1] - xo[e]
+    out.ext_off = np.concatenate(([0], np.cumsum(nb))).astype(np.int64)
+    out.ext_buf = jobs.ext_buf[_gather_ranges(xo[e], nb)]
     return out
 
 
@@ -139,6 +177,52 @@ def build_batch_jobs(contigs, stats=None):
             host_windows, count)
 
 
+def jobs_consensus(sp: ScoreParams, jobs, refs, threads: int) -> None:
+    """Each job's consensus from one native_jobs_consensus call over
+    ``jobs``, assigned to its window ``refs[j]`` (contig, windex)."""
+    from ..native.api import native_jobs_consensus
+    buf, off = native_jobs_consensus(
+        jobs, (sp.sr_match, sp.sr_mismatch, sp.sr_gap), threads)
+    for j, (ctg, wi) in enumerate(refs):
+        ctg.windows[wi].consensus = buf[off[j]:off[j + 1]].decode("latin1")
+
+
+def finish_leftovers(engine: ConsensusEngine, threads: int, fallback,
+                     host_windows, jobs=None, job_refs=(), left=()) -> None:
+    """Consensus for the windows a runner leaves to the host, assigned in
+    place.  The jobs ``left`` (indices) of ``jobs``, short windows in
+    job form whose (contig, windex) are ``job_refs[j]``, go to one
+    native_jobs_consensus call (span ``runner.fallback_jobs``); then the
+    pre-fallbacks ``fallback`` [(contig, windex)], which have no job,
+    with their arms rebuilt (``runner.materialize``), and the LONG
+    windows ``host_windows`` to one classic-engine call
+    (``runner.engine``).  With the classic engine not native, the
+    windows of ``left`` are rebuilt and join its call."""
+    if left and not engine.use_native:
+        fallback = list(fallback) + [job_refs[j] for j in left]
+        left = ()
+    if left:
+        with trace.span("runner.fallback_jobs"):
+            trace.count("runner.fallback_jobs", len(left))
+            jobs_consensus(engine.sp, take_jobs(jobs, left),
+                           [job_refs[j] for j in left], threads)
+    classic = list(host_windows)
+    with trace.span("runner.materialize"):
+        by_ctg: Dict[int, List[int]] = {}
+        ctg_of = {}
+        for ctg, wi in fallback:
+            by_ctg.setdefault(id(ctg), []).append(wi)
+            ctg_of[id(ctg)] = ctg
+        for key, wis in by_ctg.items():
+            ctg = ctg_of[key]
+            materialize_arms_bulk(ctg, wis)
+            classic.extend(ctg.windows[wi] for wi in wis)
+    trace.count("runner.fallback_materialized", len(fallback))
+    if classic:
+        with trace.span("runner.engine"):
+            engine.generate_consensus_batch(classic, threads)
+
+
 class HostTileRunner:
     """run_polish_batch-compatible host engine over native tile jobs."""
 
@@ -158,7 +242,6 @@ class HostTileRunner:
         return host_api.available() and poa_api.available()
 
     def run_polish_batch(self, contigs) -> int:
-        from ..native.api import native_jobs_consensus
         debug = bool(os.environ.get("HYPO_POA_DEBUG"))
         with trace.span("runner.jobs", timed=debug) as span:
             jobs, job_refs, fallback, host_windows, count = \
@@ -170,34 +253,16 @@ class HostTileRunner:
                   f"{len(fallback)} pre-fallbacks)", flush=True)
         with trace.span("runner.jobs_consensus", timed=debug) as span:
             if jobs is not None:
-                sp = self.sp
-                buf, off = native_jobs_consensus(
-                    jobs, (sp.sr_match, sp.sr_mismatch, sp.sr_gap),
-                    self.threads)
+                jobs_consensus(self.sp, jobs, job_refs, self.threads)
                 self.stats["native_jobs"] += jobs.n_jobs
-                for j, (ctg, wi) in enumerate(job_refs):
-                    ctg.windows[wi].consensus = \
-                        buf[off[j]:off[j + 1]].decode("latin1")
         if debug:
             print(f"[poa] jobs consensus: {span.seconds:.2f}s",
                   flush=True)
+        self.stats["fallbacks"] += len(fallback)
+        self.stats["host_long_windows"] += len(host_windows) + len(fallback)
         with trace.span("runner.leftovers", timed=debug) as span:
-            with trace.span("runner.materialize"):
-                by_ctg: Dict[int, List[int]] = {}
-                ctg_of = {}
-                for ctg, wi in fallback:
-                    by_ctg.setdefault(id(ctg), []).append(wi)
-                    ctg_of[id(ctg)] = ctg
-                for key, wis in by_ctg.items():
-                    ctg = ctg_of[key]
-                    materialize_arms_bulk(ctg, wis)
-                    host_windows.extend(ctg.windows[wi] for wi in wis)
-            self.stats["fallbacks"] += len(fallback)
-            if host_windows:
-                self.stats["host_long_windows"] += len(host_windows)
-                with trace.span("runner.engine"):
-                    self.host_engine.generate_consensus_batch(
-                        host_windows, self.threads)
+            finish_leftovers(self.host_engine, self.threads, fallback,
+                             host_windows)
         if debug and (fallback or host_windows):
             print(f"[poa] host leftovers: {span.seconds:.2f}s "
                   f"({len(fallback)} fallbacks) stats={self.stats}",

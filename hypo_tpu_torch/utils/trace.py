@@ -50,8 +50,14 @@ Where the spans are (names fixed, with no counts in them):
 - ``runner.jobs`` (the job build; child ``runner.jobs_native``, each
   native ``tile_jobs`` call), ``runner.jobs_consensus`` (the host tile
   runner), ``runner.classify`` (a wave of ``run_windows``),
-  ``runner.leftovers`` (the host engine's windows; children
-  ``runner.materialize`` and ``runner.engine``);
+  ``runner.leftovers`` (the host's windows; children
+  ``runner.materialize``, arm lists rebuilt for the pre-fallbacks,
+  ``runner.engine``, the classic engine's call, and
+  ``runner.fallback_jobs``, the native jobs engine's call over the
+  short windows left in job form), with counters
+  ``runner.fallback_jobs`` (the jobs sent to that call) and
+  ``runner.fallback_materialized`` (the windows whose arms were
+  rebuilt);
 - ``tiles.dispatch`` (every tile packed and queued; per tile
   ``tiles.pack`` and ``tiles.issue``, under which ``tiles.warm_wait``
   when the first dispatch joins the warm-up thread), ``tiles.drain``,

@@ -194,6 +194,7 @@ def test_the_hybrid_cell_resolves():
     assert cell.config["genome"]["genome_size"] == 4641652
     assert set(cell.config["reduced"]) == {"dropout", "long_len",
                                            "long_err"}
-    assert [m["name"] for m in cell.per_layer] == list(READERS)
+    assert [m["name"] for m in cell.per_layer] == list(READERS) + [
+        "runner.fallback_jobs_s", "runner.fallback_native_share"]
     assert {m["name"] for m in cell.end_to_end} == {"polish_kbp_per_s",
                                                     "setup_s"}

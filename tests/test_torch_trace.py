@@ -8,7 +8,8 @@ one:
   ``polish``, each child inside its parent;
 - the Monitor's stage spans do not overlap, and lie inside ``polish``
   with ``pipeline.runner_setup``;
-- ``runner.materialize`` + ``runner.engine`` is ``runner.leftovers``;
+- ``runner.materialize`` + ``runner.engine`` + ``runner.fallback_jobs``
+  is ``runner.leftovers``;
 - the step counters: 0 < active window steps <= window steps, as the
   tiles' arm counts give them;
 - each span is a profiler range on the profiler's timeline, at its
@@ -47,9 +48,10 @@ TABLE = {"polish", "pipeline.runner_setup", *STAGES,
          "runner.jobs_native", "tiles.pack", "tiles.issue",
          "tiles.warm_wait", "tiles.drain", "tiles.readback",
          "tiles.finalize", "runner.leftovers", "runner.materialize",
-         "runner.engine"}
-# the hybrid polish's long-read pass, under ``pipeline.long_arms``
-LONG = {"pipeline.long_load", "pipeline.long_find"}
+         "runner.fallback_jobs"}
+# the hybrid polish's long-read pass, under ``pipeline.long_arms``, and
+# the classic engine's call for its LONG windows
+LONG = {"pipeline.long_load", "pipeline.long_find", "runner.engine"}
 
 
 @pytest.fixture
@@ -203,9 +205,11 @@ def test_stage_spans_do_not_overlap(traced):
 def test_leftovers_split_into_materialize_and_engine(traced, run):
     spans, _c, _p = traced[run]
     secs = {n: trace.seconds(spans, n) for n in (
-        "runner.leftovers", "runner.materialize", "runner.engine")}
-    assert secs["runner.engine"] > 0
+        "runner.leftovers", "runner.materialize", "runner.engine",
+        "runner.fallback_jobs")}
+    assert secs["runner.engine"] + secs["runner.fallback_jobs"] > 0
     assert (secs["runner.materialize"] + secs["runner.engine"]
+            + secs["runner.fallback_jobs"]
             == pytest.approx(secs["runner.leftovers"], rel=0.02, abs=1e-3))
     assert trace.seconds(spans, "runner.jobs_native") <= trace.seconds(
         spans, "runner.jobs")
