@@ -87,9 +87,10 @@ prints its last line):
      exact`` (LONG windows on the card; calls, windows and launches of
      kernels 1 and 3 per (N, L, P) bucket) and, on the same input, in
      mode full; md5s as in 6;
-  8. full mode without the native host library (``HYPO_TPU_NO_NATIVE=1``:
-     pure-Python host stages and the runner's run_windows path) on a
-     200 kbp hybrid simulation; md5s as in 6;
+  8. without the native libraries (``HYPO_TPU_NO_NATIVE=1``) on a
+     200 kbp hybrid simulation: exact mode (pure-Python host stages,
+     the Python graphs, kernels 1 and 3 on the card), md5s as in 6;
+     mode full refuses before any host stage, naming the libraries;
   9. sharded polish: a 4 Mbp / 30x simulation in 4 contigs of 1 Mbp
      (phase 6's configuration, nothing cut), polished (a) by the port's
      host engine; (b) by two ranks (``--nproc 2``, a fresh aux directory
@@ -107,7 +108,7 @@ prints its last line):
      a subprocess whose output is printed here: ``python -m
      hypo_tpu_torch.bench --sim <sim_4m>`` (the host engine,
      then one device process polishing cold and warm: the pipeline
-     tables, the md5 check, the headline; every md5 must equal the
+     tables and the md5 check; every md5 must equal the
      pin) and ``python -m hypo_tpu_torch.tools.profile_device 2048 2``
      (the class-0 arm step's parts, the tile program's step graph,
      which must equal the eager step, and a tile eager and through the
@@ -1796,20 +1797,39 @@ def phase_exact_e2e(tmp: str, genome_size: int = 1_000_000) -> tuple:
 
 
 def phase_no_native(tmp: str, genome_size: int = 200_000) -> dict:
-    """Full mode with HYPO_TPU_NO_NATIVE=1: pure-Python host stages and
-    the runner's run_windows path, against the native host engine."""
+    """HYPO_TPU_NO_NATIVE=1: exact mode (pure-Python host stages and
+    graphs) against the native host engine; mode full exits before any
+    host stage, naming the native libraries it needs."""
     sim, common = simulate(tmp, "sim_no_native", genome_size, hybrid=True)
     md5_host, host_times = run_host(common,
                                     os.path.join(tmp, "host_no_native.fa"))
+    out = os.path.join(tmp, "torch_no_native_full.fa")
+    try:
+        run_port(common + ["-o", out, "--device-poa"], no_native=True)
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        raise RuntimeError("no-native: mode full ran without the native "
+                           "libraries")
+    log(f"no-native mode full: {refusal}")
+    if "libhypo_host, libhypo_poa did not load" not in refusal or \
+            os.path.exists(out):
+        raise RuntimeError("no-native: mode full's refusal does not name "
+                           "both libraries, or it wrote a FASTA")
     out = os.path.join(tmp, "torch_no_native.fa")
     stats, launches, times, wall = run_port(
-        common + ["-o", out, "--device-poa"], no_native=True)
-    log_times("no-native port (HYPO_TPU_NO_NATIVE=1, --device-poa)", times,
-              wall)
-    log_tiles("no-native port", stats)
+        common + ["-o", out, "--device-poa", "--device-poa-mode", "exact"],
+        no_native=True)
+    log_times("no-native port (HYPO_TPU_NO_NATIVE=1, --device-poa-mode "
+              "exact)", times, wall)
+    log(f"no-native exact device stats: device rounds "
+        f"{stats['device_rounds']}, device aligns {stats['device_aligns']} "
+        f"(of LONG windows {stats['long_aligns']}), host fallbacks "
+        f"{stats['host_fallbacks']}")
     log_times("no-native host engine (native, --no-device-poa)", host_times)
     same_md5("no-native", sim, _md5(out), md5_host)
-    check_launches("no-native (200 kbp hybrid)", launches, FULL_PATH)
+    check_launches("no-native exact (200 kbp hybrid)", launches,
+                   ("poa_dp", "poa_tb"))
     return launches
 
 
@@ -1972,17 +1992,14 @@ def run_tool(args, what: str) -> tuple:
 
 def phase_tools(tmp: str) -> None:
     sim = os.path.join(tmp, "sim_4m")
-    out, err = run_tool(["hypo_tpu_torch.bench", "--sim", sim], "bench")
-    head = json.loads(out.strip().splitlines()[-1])
+    _out, err = run_tool(["hypo_tpu_torch.bench", "--sim", sim], "bench")
     sec = json.loads(re.search(r"\[bench\] secondary (\{.*\})",
                                err).group(1))
     pin = PINNED_MD5["sim_4m"]
     md5s = {k: sec[k] for k in ("host_md5", "cold_md5", "warm_md5")}
-    log(f"bench md5s {md5s}, pinned {pin}; headline {json.dumps(head)}")
+    log(f"bench md5s {md5s}, pinned {pin}")
     if set(md5s.values()) != {pin}:
         raise RuntimeError("bench: a FASTA differs from the pinned md5")
-    if head.get("metric") != "pipeline_windows_per_sec_per_chip":
-        raise RuntimeError(f"bench: no headline ({head})")
     out, _err = run_tool(["hypo_tpu_torch.tools.profile_device", "2048",
                           "2"], "profile tool")
     rows = json.loads(out.strip().splitlines()[-1])["rows"]

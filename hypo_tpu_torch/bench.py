@@ -43,16 +43,12 @@ engine in the same run: the counterpart of the repo root's ``bench.py``.
    from torch.profiler, and ms per call between CUDA events.
 4. Prints both tables, the host engine and the md5 check (the device
    runs against the host engine, and against the pinned md5 when the
-   bench simulated the pinned 4 Mbp input itself) to stderr, and as
-   the last line of stdout the headline
-   ``{"metric": "pipeline_windows_per_sec_per_chip", "value", "unit",
-   "vs_baseline"}``: the warm device run's windows per second of POA
-   stage, against reference HyPo's ~560 windows/s on 48 CPU cores
-   (``bench.py``'s baseline).  The host engine's rate is in the
-   ``secondary`` line on stderr.
+   bench simulated the pinned 4 Mbp input itself) to stderr, and the
+   ``secondary`` line on stderr: each run's windows, seconds, windows
+   per second of POA stage, md5, pipeline table and launches, and the
+   host engine's.  The end-to-end benchmark is ``polishbench/``.
 
-A failed child, or a device md5 that differs, exits non-zero with no
-headline.  ``--device cuda`` (the default) needs a CUDA card and never
+A failed child, or a device md5 that differs, exits non-zero.  ``--device cuda`` (the default) needs a CUDA card and never
 falls back to the CPU; ``--device cpu`` runs the tile program's plain
 versions on CPU tensors (for tests, at small sizes).
 
@@ -81,7 +77,6 @@ import time
 from typing import Dict, List, Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BASELINE_WINDOWS_PER_SEC = 560.0
 POA_RE = re.compile(r"POA over (\d+) windows\. \[([0-9.]+) sec")
 TOTAL_RE = re.compile(r"Overall\. \[([0-9.]+) sec total")
 # md5 of hypo_tpu's host-engine FASTA of the simulation the bench makes
@@ -438,13 +433,6 @@ def main(argv: Optional[List[str]] = None) -> None:
         if not ok:
             raise SystemExit("[bench] a device FASTA differs from the host "
                              "engine's (or the pin)")
-        wps = warm["windows_per_s"]
-        value = round(wps, 2)
-        print(json.dumps({
-            "metric": "pipeline_windows_per_sec_per_chip",
-            "value": value, "unit": "windows/s",
-            "vs_baseline": round(value / BASELINE_WINDOWS_PER_SEC, 3)}),
-            flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

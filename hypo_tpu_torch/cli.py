@@ -5,16 +5,19 @@
         -c 30 -s 4m -o polished.fa -t 8 --device-poa
     python -m hypo_tpu_torch.cli ... -B lr.bam --device-poa \\
         --device-poa-mode exact        # hybrid; LONG windows on the card
-    HYPO_TPU_NO_NATIVE=1 python -m hypo_tpu_torch.cli ... --device-poa
+    HYPO_TPU_NO_NATIVE=1 python -m hypo_tpu_torch.cli ... --device-poa \\
+        --device-poa-mode exact        # without the native libraries
 
 Mode ``full`` (the default) runs each window's whole POA in device
 tiles; mode ``exact`` runs the DP and traceback on the device and the
-graph merges on the host.  Without the native host library
-(``HYPO_TPU_NO_NATIVE=1``, or a failed g++ build) mode ``full`` takes
-the runner's ``run_windows`` path.  The device runner's stats go to
-stderr as one JSON object: device_rounds, device_aligns, long_aligns
-and host_fallbacks for both modes, plus the tile counts of mode
-``full``.
+graph merges on the host.  Mode ``full`` needs the native host and POA
+libraries: without them (``HYPO_TPU_NO_NATIVE=1``, or a failed g++
+build) it exits before the host stages.  Exact mode and the host engine
+(``--no-device-poa``) run without them.  The device runner's stats go
+to stderr as one JSON object of the keys its mode moves: exact mode's
+device_rounds, device_aligns, long_aligns and host_fallbacks; mode
+``full``'s tile counts, trivial_windows, host_long_windows and
+host_fallbacks.
 
 Several processes polish one draft together with ``--nproc N --procid
 i`` (one contiguous range of contigs each, the k-mer counts merged and

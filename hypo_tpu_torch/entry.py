@@ -4,9 +4,11 @@
 on the card, with its example tensors.
 
 ``dryrun_multichip(n)`` is a multi-device dry run of ``polish()``: real
-windows go through the tile runner (poa.full_runner.FullDeviceRunner)
-over n devices, whose tiles split into one block of rows per device,
-and every device window is checked against the column-POA spec
+windows, laid out as the pipeline leaves them (``make_contig``: a contig
+whose short windows' arms sit in a flat arm table), go through the tile
+runner's ``run_polish_batch`` (poa.full_runner.FullDeviceRunner) over n
+devices, whose tiles split into one block of rows per device, and every
+device window is checked against the column-POA spec
 (poa.colpoa_ref.ColPoa); the k-mer count all-reduce is checked on one
 process; then ``polish()`` of a multi-contig simulation over n devices
 must write the same FASTA as over one device, with the rows per device
@@ -55,14 +57,65 @@ def entry(device=None):
     return fn, example_args
 
 
-def dryrun_windows(n_devices: int, seed: int = 0):
-    """The dry run's windows, made from ``seed``: (device windows,
-    windows over the K distinct-arm cap, LONG windows).  20 per device
-    of the first kind, enough for several tiles on the CPU (64 rows), a
-    spread of 2-6 distinct arms, one in 16 with a 200 bp draft (shape
-    class 1); two of the second kind (host fallback), two of the third
+class Contig:
+    """The fields of a contig that run_polish_batch reads."""
+
+    def __init__(self, codes, reg_starts, windows, arm_data):
+        self.codes = codes
+        self.reg_starts = reg_starts
+        self.windows = windows
+        self._device_arm_data = arm_data
+
+
+def make_contig(specs, window_cls=None) -> Contig:
+    """A contig of ``specs``' windows, one region each, as the pipeline
+    leaves them: a SHORT window's arms in a flat arm table (one
+    alignment an arm) and unmaterialized, a LONG window's arms on the
+    window.  A spec is (kind, wtype, draft, [(arm type, arm)]), draft
+    and arms strings, arm type 0 internal, 1 prefix, 2 suffix, as the
+    arm table has them.  ``window_cls`` is the Window class to build
+    (pipeline.window.Window by default)."""
+    from .dna import encode, pack2
+    from .pipeline.window import SHORT, Window
+
+    window_cls = window_cls or Window
+    drafts = [encode(d) for _k, _t, d, _a in specs]
+    reg_starts = np.concatenate(([0], np.cumsum([len(d) for d in drafts])))
+    codes = np.concatenate(drafts).astype(np.uint8)
+    windows, rows, arm_codes = [], [], []
+    for wi, (_kind, wt, _d, arms) in enumerate(specs):
+        w = window_cls(codes[reg_starts[wi]:reg_starts[wi + 1]], wt)
+        for at, arm in arms:
+            if wt != SHORT:
+                (w.add_internal, w.add_prefix, w.add_suffix)[at](encode(arm))
+                continue
+            rows.append((len(arm_codes), wi, 0, len(arm), at))
+            arm_codes.append(encode(arm))
+            if at == 0:
+                w.num_internal += 1
+            elif at == 1:
+                w.num_pre += 1
+            else:
+                w.num_suf += 1
+        windows.append(w)
+    lens = np.array([len(a) for a in arm_codes], np.int64)
+    aoff = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    abuf = pack2(np.concatenate(arm_codes).astype(np.uint8))
+    table = tuple(np.array(c, np.int32) for c in zip(*rows))
+    table = table[:4] + (table[4].astype(np.uint8),)
+    return Contig(codes, reg_starts, windows, (table, abuf, aoff))
+
+
+def dryrun_specs(n_devices: int, seed: int = 0):
+    """The dry run's windows, made from ``seed``, as make_contig's
+    specs: 20 per device of kind ``tile``, enough for several tiles on
+    the CPU (64 rows), a spread of 2-6 distinct internal arms, two
+    copies each, one in 16 with a 200 bp draft (shape class 1); two of
+    kind ``classless``, with 20 distinct arms, over the K cap (host
+    fallback); four LONG windows with internal, prefix and suffix arms
     (host engine)."""
-    from .pipeline.window import Window
+    from .dna import decode
+    from .pipeline.window import LONG, SHORT
 
     rng = np.random.default_rng(seed)
 
@@ -72,43 +125,44 @@ def dryrun_windows(n_devices: int, seed: int = 0):
             out[int(rng.integers(len(out)))] = int(rng.integers(4))
         return out
 
-    device_windows = []
+    specs = []
     for i in range(20 * n_devices):
         dlen = 200 if i % 16 == 0 else 24
         draft = rng.integers(0, 4, dlen).astype(np.uint8)
-        w = Window(draft, 0)
+        arms = []
         for v in range(2 + int(rng.integers(0, 5))):
-            arm = mutate(draft) if v else draft.copy()
-            for _copies in range(2):
-                w.add_internal(arm.astype(np.uint8))
-        device_windows.append(w)
-    overflow_windows = []
+            arm = decode(mutate(draft) if v else draft)
+            arms += [(0, arm), (0, arm)]
+        specs.append(("tile", SHORT, decode(draft), arms))
     for _i in range(2):
         draft = rng.integers(0, 4, 24).astype(np.uint8)
-        w = Window(draft, 0)
-        for _v in range(20):
-            w.add_internal(mutate(draft).astype(np.uint8))
-        overflow_windows.append(w)
-    long_windows = []
-    for _i in range(2):
-        draft = rng.integers(0, 4, 80).astype(np.uint8)
-        w = Window(draft, 1)
-        for _v in range(3):
-            w.add_internal(mutate(draft).astype(np.uint8))
-        long_windows.append(w)
-    return device_windows, overflow_windows, long_windows
+        specs.append(("classless", SHORT, decode(draft),
+                      [(0, decode(mutate(draft))) for _v in range(20)]))
+    for _i in range(4):
+        draft = rng.integers(0, 4, 120).astype(np.uint8)
+        arms = [(0, decode(mutate(draft))) for _v in range(3)]
+        for _v in range(2):
+            cut = int(rng.integers(40, 80))
+            arms += [(1, decode(mutate(draft[:cut]))),
+                     (2, decode(mutate(draft[cut:])))]
+        specs.append(("long", LONG, decode(draft), arms))
+    return specs
 
 
-def check_against_spec(runner, device_windows) -> None:
-    """Every device window's consensus equals the column-POA spec's."""
-    from .poa import GLOBAL_CODE
+def check_against_spec(ctg: Contig, specs) -> None:
+    """Every ``tile`` window's consensus (internal arms only) equals the
+    column-POA spec's over its arms, in order, between the J/O
+    markers."""
+    from .poa import GLOBAL_CODE, NW
     from .poa.colpoa_ref import ColPoa
+    from .poa.engine import HEAD, TAIL
 
-    for w in device_windows:
+    for w, (kind, _wt, _d, arms) in zip(ctg.windows, specs):
+        if kind != "tile":
+            continue
         cp = ColPoa(SCORES["m"], SCORES["n"], SCORES["g"])
-        job = runner._build_job(w)
-        for s, md in job.seqs:
-            cp.add([GLOBAL_CODE[c] for c in s], md)
+        for _at, arm in arms:
+            cp.add([GLOBAL_CODE[c] for c in HEAD + arm + TAIL], NW)
         codes, _sup = cp.consensus()
         expect = "".join("ACGTJO"[c] for c in codes)[1:-1]
         if w.consensus != expect:
@@ -169,18 +223,18 @@ def dryrun_multichip(n_devices: int,
     if len(devices) != n_devices:
         raise ValueError(f"dryrun_multichip({n_devices}): given "
                          f"{len(devices)} devices")
-    dw, ow, lw = dryrun_windows(n_devices)
-    windows = dw + ow + lw
+    specs = dryrun_specs(n_devices)
+    ctg = make_contig(specs)
     with _poa_ndev(n_devices):
         runner = FullDeviceRunner(ScoreParams(), devices)
-    n = runner.run_windows(windows)
+    n = runner.run_polish_batch([ctg])
     st = runner.stats
-    if not (n == len(windows) and st["full_dispatches"] > 1
+    if not (n == len(specs) and st["full_dispatches"] > 1
             and st["host_fallbacks"] >= 2 and st["host_long_windows"] >= 2
-            and all(w.consensus is not None for w in windows)):
-        raise AssertionError(f"dryrun runner: {n} of {len(windows)} "
+            and all(w.consensus is not None for w in ctg.windows)):
+        raise AssertionError(f"dryrun runner: {n} of {len(specs)} "
                              f"windows, stats {st}")
-    check_against_spec(runner, dw)
+    check_against_spec(ctg, specs)
 
     rng = np.random.default_rng(0)
     table = rng.integers(0, 100, 4 ** 6).astype(np.int32)
@@ -213,6 +267,6 @@ def dryrun_multichip(n_devices: int,
           f"{stats['full_dispatches']} tiles, rows per device {rows} "
           f"(balance {balance:.2f}), output equal to one device's (md5 "
           f"{h_multi}); runner level: {st['full_dispatches']} tiles, "
-          f"{len(windows)} windows, every device window equal to the "
+          f"{len(specs)} windows, every device window equal to the "
           f"column-POA spec", flush=True)
     return dict(stats=stats, md5=h_multi, windows=nwin, balance=balance)

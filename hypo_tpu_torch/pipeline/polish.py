@@ -19,11 +19,11 @@ Stage checkpointing mirrors the reference's aux/ dir (-i): solid kmers in
 
 Window consensus runs either on the host engine or (use_device_poa) on
 a CUDA device: mode ``full`` through the tile runner of
-poa.full_runner, mode ``exact`` through the runner of poa.batch.  The
-full runner takes ``run_polish_batch`` when the native host library is
-available and ``run_windows`` when it is not; the exact runner always
-takes ``run_windows``.  Asking for the device path without CUDA exits
-with an error: nothing moves to the CPU quietly.
+poa.full_runner, mode ``exact`` through the runner of poa.batch.  Mode
+``full`` needs the native host and POA libraries (it exits before the
+host stages without them); the host engine uses them when they load.
+Asking for the device path without CUDA exits with an error: nothing
+moves to the CPU quietly.
 
 With ``num_processes`` > 1 each process polishes one contiguous range
 of contigs (parallel.distributed): it counts k-mers over its share of
@@ -292,8 +292,9 @@ class Polisher:
 
     def _make_device_runner(self):
         """The device consensus runner, its scores checked against the
-        DP kernel's int16 cells and its kernels built (or loaded), before
-        the host stages start."""
+        DP kernel's int16 cells (and mode ``full``'s native libraries
+        checked) and its kernels built (or loaded), before the host
+        stages start."""
         f = self.flags
         if not f.use_device_poa:
             return None
@@ -309,6 +310,17 @@ class Polisher:
                              f"{f.device_poa_mode} cannot take these scores "
                              f"({e}); polish with --no-device-poa") from None
         if f.device_poa_mode == "full":
+            from ..poa.host_runner import missing_native_libs
+            missing = missing_native_libs()
+            if missing:
+                why = ("HYPO_TPU_NO_NATIVE is set"
+                       if os.environ.get("HYPO_TPU_NO_NATIVE")
+                       else "a failed build or load")
+                raise SystemExit(
+                    f"hypo_tpu_torch: --device-poa-mode full needs the "
+                    f"native host and POA libraries, and {', '.join(missing)}"
+                    f" did not load ({why}); polish with --device-poa-mode "
+                    f"exact or --no-device-poa")
             runner = FullDeviceRunner(
                 f.score_params, (self.device if self.device is not None
                                  else cuda_devices()), threads=f.threads)
@@ -480,16 +492,14 @@ class Polisher:
         # the flat native arm table (no per-window Python arm lists).
         # The same native job builder feeds either engine: device tiles
         # (FullDeviceRunner) or the OpenMP jobs-consensus
-        # (HostTileRunner).
-        if self.device_runner is not None:
-            tile_runner = self.device_runner
-        else:
-            from ..poa.host_runner import HostTileRunner
-            tile_runner = HostTileRunner(
-                f.score_params, threads=f.threads)
-        fast_tiles = (native_host
-                      and hasattr(tile_runner, "supports_native_tiles")
-                      and tile_runner.supports_native_tiles())
+        # (HostTileRunner); exact mode takes run_windows.
+        from ..poa.host_runner import HostTileRunner, missing_native_libs
+        tile_runner = self.device_runner
+        if f.use_device_poa and f.device_poa_mode == "exact":
+            tile_runner = None
+        elif tile_runner is None and not missing_native_libs():
+            tile_runner = HostTileRunner(f.score_params, threads=f.threads)
+        fast_tiles = tile_runner is not None
         mon.start("pipeline.short_arms")
         arm_tables: Dict[int, tuple] = {}
         for cid in range(lo, hi):

@@ -15,7 +15,8 @@ OMP per-window POA loop over spoa, src/Hypo.cpp:237-247.
 ``finish_leftovers`` is both runners' host-engine route: short windows
 that have a job (FullDeviceRunner's classless and overflowed ones) go
 to the native jobs engine, pre-fallbacks and LONG windows to the
-classic engine.
+classic engine.  The route needs both native libraries;
+``missing_native_libs`` names those that did not load.
 
 Copied from hypo_tpu/poa/host_runner.py, with spans (``utils.trace``):
 ``runner.jobs_native`` around each native job build, and in
@@ -32,14 +33,25 @@ from typing import Dict, List
 import numpy as np
 
 from ..config import ScoreParams
+from ..native import api as poa_api
+from ..native import host_api
 from ..utils import trace
 from .engine import ConsensusEngine
+
+
+def missing_native_libs() -> List[str]:
+    """The native libraries the flat-table route (the job builder, then
+    device tiles or the native jobs engine) needs that did not load:
+    ``libhypo_host`` (native.host_api) and ``libhypo_poa``
+    (native.api).  The route is available when none is missing."""
+    return [name for name, lib in (("libhypo_host", host_api),
+                                   ("libhypo_poa", poa_api))
+            if not lib.available()]
 
 
 def merge_tile_jobs(parts):
     """Concatenate per-contig TileJobs into one flat job store,
     shifting the ext offsets."""
-    from ..native import host_api
     if len(parts) == 1:
         return parts[0]
     out = host_api.TileJobs.__new__(host_api.TileJobs)
@@ -77,7 +89,6 @@ def take_jobs(jobs, idx):
     """The jobs ``idx`` of a merged TileJobs (indices, in that order) as
     a TileJobs of their own: each job's ext entries and their codes
     gathered as they are, nothing rebuilt."""
-    from ..native import host_api
     idx = np.asarray(idx, np.int64)
     out = host_api.TileJobs.__new__(host_api.TileJobs)
     out.n_jobs = len(idx)
@@ -134,7 +145,6 @@ def build_batch_jobs(contigs, stats=None):
     (merged TileJobs or None, job_refs [(ctg, windex)], fallback
     [(ctg, windex)], host_windows [LONG Window], count).  Direct
     consensus (trivial + dispatch-rule windows) is assigned inline."""
-    from ..native import host_api
     count = 0
     host_windows = []
     fallback = []
@@ -196,11 +206,7 @@ def finish_leftovers(engine: ConsensusEngine, threads: int, fallback,
     pre-fallbacks ``fallback`` [(contig, windex)], which have no job,
     with their arms rebuilt (``runner.materialize``), and the LONG
     windows ``host_windows`` to one classic-engine call
-    (``runner.engine``).  With the classic engine not native, the
-    windows of ``left`` are rebuilt and join its call."""
-    if left and not engine.use_native:
-        fallback = list(fallback) + [job_refs[j] for j in left]
-        left = ()
+    (``runner.engine``)."""
     if left:
         with trace.span("runner.fallback_jobs"):
             trace.count("runner.fallback_jobs", len(left))
@@ -227,19 +233,12 @@ class HostTileRunner:
     """run_polish_batch-compatible host engine over native tile jobs."""
 
     def __init__(self, sp: ScoreParams, fix_long_align_type: bool = False,
-                 use_native: bool = None, threads: int = 0):
+                 threads: int = 0):
         self.sp = sp
         self.threads = threads
-        self.host_engine = ConsensusEngine(sp, fix_long_align_type,
-                                           use_native)
+        self.host_engine = ConsensusEngine(sp, fix_long_align_type)
         self.stats = {"trivial_windows": 0, "native_jobs": 0,
                       "host_long_windows": 0, "fallbacks": 0}
-
-    @staticmethod
-    def supports_native_tiles() -> bool:
-        from ..native import host_api
-        from ..native import api as poa_api
-        return host_api.available() and poa_api.available()
 
     def run_polish_batch(self, contigs) -> int:
         debug = bool(os.environ.get("HYPO_POA_DEBUG"))

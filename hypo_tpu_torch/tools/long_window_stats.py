@@ -33,7 +33,7 @@ def collect(sim: str, out: str) -> list:
     from ..pipeline.polish import Polisher
     from ..poa import engine as eng_mod
     from ..poa.batch import DeviceConsensusRunner
-    from ..poa.full_runner import CLASSES, _dedup
+    from ..poa.full_runner import CLASSES
 
     L1, N1, K1, _B1, _A1 = CLASSES[1]
     stats = []
@@ -51,8 +51,8 @@ def collect(sim: str, out: str) -> list:
             if job is None:
                 stats.append((raw, 0, 0, len(w.draft), True, "no-job"))
                 continue
-            ext = _dedup(job.seqs)
-            maxl = max(len(s) for s, _m, _w in ext)
+            ext = set(job.seqs)     # the distinct (sequence, mode) arms
+            maxl = max(len(s) for s, _m in ext)
             need_n = max(2 * maxl, maxl + 32)
             fits = maxl <= L1 and need_n <= N1 and len(ext) <= K1
             stats.append((raw, len(ext), maxl, len(w.draft), fits, ""))

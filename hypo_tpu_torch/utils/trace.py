@@ -49,8 +49,7 @@ Where the spans are (names fixed, with no counts in them):
   long arms, window fill);
 - ``runner.jobs`` (the job build; child ``runner.jobs_native``, each
   native ``tile_jobs`` call), ``runner.jobs_consensus`` (the host tile
-  runner), ``runner.classify`` (a wave of ``run_windows``),
-  ``runner.leftovers`` (the host's windows; children
+  runner), ``runner.leftovers`` (the host's windows; children
   ``runner.materialize``, arm lists rebuilt for the pre-fallbacks,
   ``runner.engine``, the classic engine's call, and
   ``runner.fallback_jobs``, the native jobs engine's call over the

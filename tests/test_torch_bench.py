@@ -6,17 +6,16 @@ marker:
   program for every tile before its first readback, in the order in
   which hypo_tpu's ``run_polish_batch`` calls its own on the same 20 kbp
   input (CPU tile of B = 64, one device), and both write one FASTA;
-- the ``HYPO_POA_DEBUG`` stage lines: both of the port's paths print
+- the ``HYPO_POA_DEBUG`` stage lines: ``run_polish_batch`` prints
   hypo_tpu's labels, in hypo_tpu's order, with the same counts (times,
-  stats and the port's extra ``device drain`` line in
-  ``run_polish_batch`` aside);
+  stats and the port's extra ``device drain`` line aside), and nothing
+  without the variable;
 - the warm-up: it names all three kernels, runs each class's tile
   program once on a zero tile in its thread, and an error it meets
-  reaches the first dispatch on both paths;
-- ``python -m hypo_tpu_torch.bench --device cpu`` at 20 kbp: a parsable
-  headline, a pipeline table within the POA stage, device md5s equal to
-  the host engine's; without a card, ``--device cuda`` exits non-zero
-  with no headline;
+  reaches the first dispatch, from the runner and from polish();
+- ``python -m hypo_tpu_torch.bench --device cpu`` at 20 kbp: a pipeline
+  table within the POA stage, device md5s equal to the host engine's;
+  without a card, ``--device cuda`` exits non-zero with no output;
 - ``python -m hypo_tpu_torch.tools.profile_device`` at B = 64: six
   eager rows and the tile row (eager and tile program, equal bytes);
   its state and step equal the JAX tool's state and JAX's
@@ -49,12 +48,12 @@ from hypo_tpu.poa import device_full as JDF
 from hypo_tpu.poa import full_runner as jfull
 from hypo_tpu.sim import SimConfig, simulate
 from hypo_tpu_torch.config import InputFlags
+from hypo_tpu_torch.entry import dryrun_specs, make_contig
 from hypo_tpu_torch.native import host_api
 from hypo_tpu_torch.pipeline.polish import Polisher
 from hypo_tpu_torch.poa import device_full as TF
 from hypo_tpu_torch.poa import full_runner as tfull
 from hypo_tpu_torch.tools import long_window_stats, profile_device
-from test_torch_runners import windows
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -197,31 +196,12 @@ def test_run_polish_batch_prints_the_jax_stage_lines(polished_20k):
     assert port == _labels(jtext)
 
 
-def test_run_windows_prints_the_jax_stage_lines(monkeypatch, capsys):
-    """Two waves (LONG windows' second round), host routing, trivial
-    windows: the JAX runner's lines with the same counts, including the
-    device drain that its run_windows has too."""
-    monkeypatch.setenv("HYPO_POA_NDEV", "1")
-    monkeypatch.setenv("HYPO_POA_DEBUG", "1")
-    sp = ScoreParams()
-    texts = []
-    for make in (lambda: tfull.FullDeviceRunner(sp, "cpu"),
-                 lambda: jfull.FullDeviceRunner(sp)):
-        wins = windows(32, 24, long_arms=True)
-        make().run_windows(wins)
-        texts.append(capsys.readouterr().out)
-    port, jax_ = (_labels(t) for t in texts)
-    assert port == jax_
-    assert any(line.startswith("[poa] wave 0: device drain")
-               for line in port)
-    assert len(port) >= 5
-
-
 def test_nothing_prints_without_the_variable(monkeypatch, capsys):
     monkeypatch.delenv("HYPO_POA_DEBUG", raising=False)
     monkeypatch.setenv("HYPO_POA_NDEV", "1")
-    tfull.FullDeviceRunner(ScoreParams(), "cpu").run_windows(
-        windows(32, 4))
+    ctg = make_contig(dryrun_specs(1))
+    tfull.FullDeviceRunner(ScoreParams(), "cpu").run_polish_batch([ctg])
+    assert all(w.consensus is not None for w in ctg.windows)
     assert "[poa]" not in capsys.readouterr().out
 
 
@@ -260,11 +240,12 @@ def test_warm_runs_each_class_on_a_zero_tile_in_a_thread(monkeypatch,
         assert not out[:, N // 2:].any()        # every consensus empty
 
 
-@pytest.mark.parametrize("path", ["run_windows", "run_polish_batch"])
+@pytest.mark.parametrize("path", ["dry_run_contig", "run_polish_batch"])
 def test_a_warm_up_error_reaches_the_first_dispatch(monkeypatch, tmp_path,
                                                     path):
-    """The warm-up thread's tile program raises; the first dispatch of
-    either path raises it (as the cause), and the thread is joined."""
+    """The warm-up thread's tile program raises; the first dispatch
+    raises it (as the cause), and the thread is joined: the runner's
+    own run_polish_batch on the dry run's contig, or polish()."""
     def boom(self, ci, scores):
         if _main_thread():
             return build(self, ci, scores)
@@ -273,17 +254,17 @@ def test_a_warm_up_error_reaches_the_first_dispatch(monkeypatch, tmp_path,
             raise ValueError("boom in the warm-up")
         return tile
 
+    if not host_api.available():
+        pytest.skip("the native host library did not build")
     build = tfull.FullDeviceRunner._program
     monkeypatch.setattr(tfull.FullDeviceRunner, "_program", boom)
     monkeypatch.setenv("HYPO_POA_NDEV", "1")
-    if path == "run_windows":
+    if path == "dry_run_contig":
         runner = tfull.FullDeviceRunner(ScoreParams(), CPU)
         runner.warm()
         with pytest.raises(RuntimeError, match="warm-up failed") as err:
-            runner.run_windows(windows(32, 24))
+            runner.run_polish_batch([make_contig(dryrun_specs(1))])
     else:
-        if not host_api.available():
-            pytest.skip("the native host library did not build")
         paths = simulate(SimConfig(genome_size=8000, seed=7,
                                    draft_error_rate=0.012),
                          str(tmp_path / "sim"))
@@ -298,7 +279,7 @@ def test_a_warm_up_error_reaches_the_first_dispatch(monkeypatch, tmp_path,
         with pytest.raises(RuntimeError, match="warm-up failed") as err:
             polisher.polish()
         runner = polisher.device_runner
-        assert runner.stats["full_dispatches"] == 0
+    assert runner.stats["full_dispatches"] == 0
     assert isinstance(err.value.__cause__, ValueError)
     assert runner._warm_thread is None and runner._warm_error is None
 
@@ -313,15 +294,10 @@ def _bench(*args, timeout=600):
 def test_bench_on_the_cpu_at_20kbp():
     r = _bench("--mbp", "0.02", "--device", "cpu", "--threads", "2")
     assert r.returncode == 0, r.stderr[-3000:]
-    head = json.loads(r.stdout.strip().splitlines()[-1])
-    assert head["metric"] == "pipeline_windows_per_sec_per_chip"
-    assert head["unit"] == "windows/s" and head["value"] > 0
-    assert head["vs_baseline"] == round(head["value"] / 560.0, 3)
     sec = json.loads(re.search(r"\[bench\] secondary (\{.*\})",
                                r.stderr).group(1))
     assert sec["device"] == "cpu" and sec["genome_bp"] == 20000
     assert sec["cold_md5"] == sec["warm_md5"] == sec["host_md5"]
-    assert round(sec["warm_windows_per_s"], 2) == head["value"]
     for run in ("cold", "warm"):
         table = sec[f"{run}_pipeline"]
         assert list(table) == ["jobs", "pack", "issue", "warm_wait",

@@ -5,15 +5,16 @@ call (``host_runner.finish_leftovers``); pre-fallbacks (an N where the
 job builder meets it) and LONG windows go to the classic engine after
 it.
 
-- A contig built here holds every kind of window: tile windows, a
-  trivial one, classless ones (more distinct arms than K, an arm longer
-  than the last class's L), windows that overflow a class-0 tile (the
-  classes' caps lowered, in this test only), a pre-fallback and a LONG
-  window.  Each window's consensus equals the classic engine's over
-  its materialized arms (the route these windows took before) and
-  hypo_tpu's ``run_polish_batch``; the stats count as before, and the
-  counters ``runner.fallback_jobs`` and ``runner.fallback_materialized``
-  count the two routes.
+- A contig (``entry.make_contig``) holds every kind of window: tile
+  windows, a trivial one, classless ones (more distinct arms than K, an
+  arm longer than the last class's L), windows that overflow a class-0
+  tile (the classes' caps lowered, in this test only), a pre-fallback
+  and a LONG window.  Through either caller of ``finish_leftovers``
+  (FullDeviceRunner and HostTileRunner), each window's consensus equals
+  the classic engine's over its materialized arms; the tile runner's
+  also equals hypo_tpu's ``run_polish_batch``, its stats count as
+  before, and the counters ``runner.fallback_jobs`` and
+  ``runner.fallback_materialized`` count the two routes.
 - ``take_jobs`` gives, for any index list, each job's ext slices as the
   merged TileJobs holds them.
 - On test_torch_pipeline's 9 kbp hybrid simulation, the native call
@@ -35,10 +36,10 @@ from hypo_tpu.pipeline.window import Window as JWindow
 from hypo_tpu.poa import full_runner as jfull
 from hypo_tpu.sim import SimConfig, simulate
 from hypo_tpu_torch.config import ScoreParams
-from hypo_tpu_torch.dna import encode, pack2
+from hypo_tpu_torch.entry import make_contig
 from hypo_tpu_torch.native import host_api
 from hypo_tpu_torch.pipeline.polish import polish
-from hypo_tpu_torch.pipeline.window import LONG, SHORT, Window
+from hypo_tpu_torch.pipeline.window import LONG, SHORT
 from hypo_tpu_torch.poa import full_runner as tfull
 from hypo_tpu_torch.poa import host_runner
 from hypo_tpu_torch.poa.engine import ConsensusEngine
@@ -52,16 +53,6 @@ N_CLASSLESS, N_OVERFLOW = 3, 4
 
 pytestmark = pytest.mark.skipif(not host_api.available(),
                                 reason="the native host library did not build")
-
-
-class Contig:
-    """The fields of a contig that run_polish_batch reads."""
-
-    def __init__(self, codes, reg_starts, windows, arm_data):
-        self.codes = codes
-        self.reg_starts = reg_starts
-        self.windows = windows
-        self._device_arm_data = arm_data
 
 
 def _specs(seed):
@@ -105,41 +96,10 @@ def _specs(seed):
     return out
 
 
-def _contig(specs, window_cls):
-    """A contig of the specs' windows, one region each, their short arms
-    in a flat arm table (one alignment an arm) and unmaterialized, the
-    LONG window's arms on the window, as the pipeline leaves them."""
-    drafts = [encode(d) for _k, _t, d, _a in specs]
-    reg_starts = np.concatenate(([0], np.cumsum([len(d) for d in drafts])))
-    codes = np.concatenate(drafts).astype(np.uint8)
-    windows, rows, arm_codes = [], [], []
-    for wi, (kind, wt, _d, arms) in enumerate(specs):
-        w = window_cls(codes[reg_starts[wi]:reg_starts[wi + 1]], wt)
-        for at, arm in arms:
-            if wt != SHORT:
-                w.add_internal(encode(arm))
-                continue
-            rows.append((len(arm_codes), wi, 0, len(arm), at))
-            arm_codes.append(encode(arm))
-            if at == 0:
-                w.num_internal += 1
-            elif at == 1:
-                w.num_pre += 1
-            else:
-                w.num_suf += 1
-        windows.append(w)
-    lens = np.array([len(a) for a in arm_codes], np.int64)
-    aoff = np.concatenate(([0], np.cumsum(lens)[:-1]))
-    abuf = pack2(np.concatenate(arm_codes).astype(np.uint8))
-    table = tuple(np.array(c, np.int32) for c in zip(*rows))
-    table = table[:4] + (table[4].astype(np.uint8),)
-    return Contig(codes, reg_starts, windows, (table, abuf, aoff))
-
-
 def _classic(specs):
     """Every window's consensus from the classic engine over its
     materialized arms."""
-    ctg = _contig(specs, Window)
+    ctg = make_contig(specs)
     short = [wi for wi, s in enumerate(specs) if s[1] == SHORT]
     host_runner.materialize_arms_bulk(ctg, short)
     engine = ConsensusEngine(ScoreParams())
@@ -155,11 +115,15 @@ def small_classes(monkeypatch):
     monkeypatch.setenv("HYPO_POA_NDEV", "1")
 
 
-def _port_run(specs, use_native=None):
+RUNNERS = {"full": lambda: tfull.FullDeviceRunner(ScoreParams(), CPU),
+           "host": lambda: host_runner.HostTileRunner(ScoreParams())}
+
+
+def _port_run(specs, runner):
     """The port's run_polish_batch with the recorder on: (consensus,
     stats, the runner's counters, the leftovers' spans)."""
-    ctg = _contig(specs, Window)
-    runner = tfull.FullDeviceRunner(ScoreParams(), CPU, use_native=use_native)
+    ctg = make_contig(specs)
+    runner = RUNNERS[runner]()
     trace.RECORDER.reset()
     trace.enable()
     try:
@@ -176,19 +140,28 @@ def _port_run(specs, use_native=None):
     return [w.consensus for w in ctg.windows], runner.stats, counts, spans
 
 
-@pytest.mark.parametrize("use_native", [None, False])
-def test_every_kind_of_window_keeps_its_consensus(small_classes, use_native):
-    """The native route by default; with the classic engine not native
-    (``use_native=False``), the job-form windows are rebuilt for it, as
-    before."""
+@pytest.mark.parametrize("runner", ["full", "host"])
+def test_every_kind_of_window_keeps_its_consensus(small_classes, runner):
+    """Both callers of finish_leftovers: the tile runner sends its
+    classless and overflowed windows' jobs to the native jobs engine;
+    the host runner finishes every job there itself; both leave the
+    pre-fallback (arms rebuilt) and the LONG window to the classic
+    engine."""
     specs = _specs(5)
     kinds = [k for k, *_ in specs]
-    cons, st, counts, spans = _port_run(specs, use_native)
+    cons, st, counts, spans = _port_run(specs, runner)
     ref = _classic(specs)
     assert cons == ref
     assert all(c is not None for c in cons)
     assert cons[kinds.index("prefallback")]
-    jctg = _contig(specs, JWindow)
+    assert counts["runner.fallback_materialized"] == 1
+    assert "runner.engine" in spans
+    if runner == "host":
+        assert st["fallbacks"] == 1 and st["host_long_windows"] == 2
+        assert st["native_jobs"] == len(specs) - 3   # trivial, pre, LONG
+        assert "runner.fallback_jobs" not in counts
+        return
+    jctg = make_contig(specs, JWindow)
     jrunner = jfull.FullDeviceRunner(JScoreParams())
     jrunner.run_polish_batch([jctg])
     assert [w.consensus for w in jctg.windows] == cons
@@ -200,16 +173,8 @@ def test_every_kind_of_window_keeps_its_consensus(small_classes, use_native):
             == jst["host_long_windows"])
     for key in ("full_windows", "full_dispatches", "trivial_windows"):
         assert st[key] == jst[key], key
-    left = N_CLASSLESS + N_OVERFLOW
-    if use_native is None:
-        assert counts["runner.fallback_jobs"] == left
-        assert counts["runner.fallback_materialized"] == 1
-        assert "runner.fallback_jobs" in spans
-    else:
-        assert "runner.fallback_jobs" not in counts
-        assert counts["runner.fallback_materialized"] == 1 + left
-        assert "runner.fallback_jobs" not in spans
-    assert "runner.engine" in spans
+    assert counts["runner.fallback_jobs"] == N_CLASSLESS + N_OVERFLOW
+    assert "runner.fallback_jobs" in spans
 
 
 def _merged_jobs():
@@ -217,7 +182,7 @@ def _merged_jobs():
     parts = []
     for seed in (7, 8):
         specs = [s for s in _specs(seed) if s[1] == SHORT]
-        ctg = _contig(specs, Window)
+        ctg = make_contig(specs)
         n = len(specs)
         table, abuf, aoff = ctg._device_arm_data
         parts.append(host_api.tile_jobs(

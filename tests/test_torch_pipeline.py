@@ -2,11 +2,13 @@
 short-read simulation the port's polisher (tile program) writes a FASTA
 byte-identical to hypo_tpu's with --device-poa (JAX tile program) and
 with --no-device-poa (native host engine); on a 9 kbp hybrid simulation
-its exact mode, and its full mode without the native host library, both
-write the native host engine's FASTA; on a 60 kbp simulation at 8x
-short-read coverage, whose weak windows reach tile class 1, the port's
-full mode writes the FASTA of hypo_tpu's host engine."""
+its exact mode writes the native host engine's FASTA, with the native
+libraries and without them, and its full mode without one of them exits
+before any host stage; on a 60 kbp simulation at 8x short-read
+coverage, whose weak windows reach tile class 1, the port's full mode
+writes the FASTA of hypo_tpu's host engine."""
 import hashlib
+import os
 
 import pytest
 import torch
@@ -14,7 +16,8 @@ import torch
 from hypo_tpu.config import InputFlags, get_kmer_len
 from hypo_tpu.pipeline.polish import polish as polish_ref
 from hypo_tpu.sim import SimConfig, simulate
-from hypo_tpu_torch.pipeline.polish import polish
+from hypo_tpu_torch.native import api as poa_api
+from hypo_tpu_torch.pipeline.polish import Polisher, polish
 
 
 def _md5(path):
@@ -82,18 +85,42 @@ def test_port_exact_mode_fasta_matches_host_engine(hybrid_sim, tmp_path):
     assert _md5(flags.output_filename) == md5
 
 
-def test_port_full_mode_without_native_library_matches_host_engine(
-        hybrid_sim, tmp_path, monkeypatch):
-    """HYPO_TPU_NO_NATIVE=1: the orchestrator's pure-Python host stages
-    and the tile runner's run_windows path."""
-    monkeypatch.setenv("HYPO_TPU_NO_NATIVE", "1")
+@pytest.mark.parametrize("mode,missing", [
+    ("full", "HYPO_TPU_NO_NATIVE"), ("exact", "HYPO_TPU_NO_NATIVE"),
+    ("full", "libhypo_poa")])
+def test_port_without_the_native_libraries(
+        hybrid_sim, tmp_path, monkeypatch, mode, missing):
+    """Without the native libraries (HYPO_TPU_NO_NATIVE=1), or without
+    the POA library alone: mode full exits before any host stage,
+    naming what is missing and the modes that run; exact mode runs the
+    pure-Python host stages and its runner, and writes the native host
+    engine's FASTA."""
+    if missing == "HYPO_TPU_NO_NATIVE":
+        monkeypatch.setenv("HYPO_TPU_NO_NATIVE", "1")
+    else:
+        monkeypatch.setattr(poa_api, "available", lambda: False)
     paths, md5 = hybrid_sim
-    flags = _flags(paths, tmp_path / "no_native.fa", True, "full")
-    runner = polish(flags, device=torch.device("cpu")).device_runner
-    assert not runner.supports_native_tiles()
-    assert runner.stats["full_windows"] > 0
-    assert runner.stats["host_long_windows"] > 0
-    assert _md5(flags.output_filename) == md5
+    flags = _flags(paths, tmp_path / f"no_native_{mode}.fa", True, mode)
+    polisher = Polisher(flags, device=torch.device("cpu"))
+    if mode == "exact":
+        polisher.polish()
+        assert polisher.device_runner.stats["device_aligns"] > 0
+        assert _md5(flags.output_filename) == md5
+        return
+    with pytest.raises(SystemExit) as err:
+        polisher.polish()
+    message = str(err.value)
+    assert "--device-poa-mode full needs the native host and POA " \
+        "libraries" in message
+    assert "--device-poa-mode exact or --no-device-poa" in message
+    if missing == "HYPO_TPU_NO_NATIVE":
+        assert "libhypo_host, libhypo_poa did not load (HYPO_TPU_NO_NATIVE " \
+            "is set)" in message
+    else:
+        assert "and libhypo_poa did not load (a failed build or load)" \
+            in message
+    assert polisher.contigs == []        # the draft loads after the check
+    assert not os.path.exists(flags.output_filename)
 
 
 # md5 of hypo_tpu.cli --no-device-poa's FASTA from ``python -m

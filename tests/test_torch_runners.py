@@ -1,13 +1,13 @@
-"""The port's two Python-job-model runners against the JAX package's, on
-CPU tensors (the kernels' plain versions): exact mode's
-DeviceConsensusRunner.run_windows (hypo_tpu_torch.poa.batch vs
-hypo_tpu.poa.batch) and the tile runner's run_windows, the path without
-the native host library (hypo_tpu_torch.poa.full_runner vs
-hypo_tpu.poa.full_runner), each also with the runners' options
-fix_long_align_type and use_native.  Windows are test_device_poa's
-synthetic SHORT + LONG windows, made from numpy seeds, plus a few that
-force the host paths; consensus strings and stats must be equal
-(tolerance 0)."""
+"""The port's runners against the JAX package's, on CPU tensors (the
+kernels' plain versions): exact mode's DeviceConsensusRunner.run_windows
+(hypo_tpu_torch.poa.batch vs hypo_tpu.poa.batch), also with its options
+fix_long_align_type and use_native, on test_device_poa's synthetic
+SHORT + LONG windows, made from numpy seeds, plus a few that force the
+host paths; and the tile runner's run_polish_batch
+(hypo_tpu_torch.poa.full_runner vs hypo_tpu.poa.full_runner), also with
+fix_long_align_type, on the dry run's contig (hypo_tpu_torch.entry), its
+device windows also held to the column-POA spec.  Consensus strings and
+stats must be equal (tolerance 0)."""
 import copy
 
 import numpy as np
@@ -21,6 +21,7 @@ from hypo_tpu.poa import batch as jbatch
 from hypo_tpu.poa import full_runner as jfull
 from hypo_tpu.poa.engine import ConsensusEngine
 from hypo_tpu.sim import SimConfig, simulate
+from hypo_tpu_torch.entry import check_against_spec, dryrun_specs, make_contig
 from hypo_tpu_torch.pipeline.polish import Polisher
 from hypo_tpu_torch.poa import batch as tbatch
 from hypo_tpu_torch.poa import full_runner as tfull
@@ -48,19 +49,6 @@ def windows(seed, n, long_arms=False):
             w.add_internal(encode(base))
         out.append(w)
     return out
-
-
-def with_n(rng):
-    """A SHORT window whose arms each hold an N (dna code 4), as reads
-    and drafts may: the tiles pack it as code 0, as the JAX runner
-    does."""
-    base = rand_seq(rng, 60, 80)
-    w = Window(encode(base), SHORT)
-    for _ in range(4):
-        arm = mutate(rng, base, 0.05)
-        k = int(rng.integers(len(arm)))
-        w.add_internal(encode(arm[:k] + "N" + arm[k + 1:]))
-    return w
 
 
 @pytest.mark.parametrize("use_native", [True, False])
@@ -94,30 +82,49 @@ def test_exact_runner_matches_jax_and_host_engine(use_native, monkeypatch):
     assert 0 < port[1]["long_aligns"] < port[1]["device_aligns"]
 
 
-def test_full_runner_run_windows_matches_jax(monkeypatch):
-    """One JAX device (HYPO_POA_NDEV=1), so the two runners cut the same
-    tiles; the port has one device by construction."""
+def dryrun_runs(monkeypatch, **kw):
+    """The dry run's contig for one device through the port's and
+    hypo_tpu's run_polish_batch (one JAX device, HYPO_POA_NDEV=1, so
+    the two cut the same tiles), with the runners' options ``kw``:
+    {name: (consensus, stats)}, after the port's device windows are
+    checked against the column-POA spec."""
     monkeypatch.setenv("HYPO_POA_NDEV", "1")
     sp = ScoreParams()
+    specs = dryrun_specs(1)
     runs = {}
-    for name, make in (("port", lambda: tfull.FullDeviceRunner(sp, "cpu")),
-                       ("jax", lambda: jfull.FullDeviceRunner(sp))):
-        wins = windows(32, 24, long_arms=True)
-        wins.append(with_n(np.random.default_rng(33)))
+    for name, make, window_cls in (
+            ("port", lambda: tfull.FullDeviceRunner(sp, "cpu", **kw), None),
+            ("jax", lambda: jfull.FullDeviceRunner(sp, **kw), Window)):
+        ctg = make_contig(specs, window_cls)
         runner = make()
-        assert runner.run_windows(wins) == len(wins)
-        runs[name] = ([w.consensus for w in wins], runner.stats)
-    port, jax_ = runs["port"], runs["jax"]
-    assert port[0][-1]                        # the N window's consensus
-    assert port[0] == jax_[0]
+        assert runner.run_polish_batch([ctg]) == len(specs)
+        runs[name] = ([w.consensus for w in ctg.windows], runner.stats)
+        if name == "port":
+            check_against_spec(ctg, specs)
+    return runs
+
+
+def same_tiles_and_routing(port, jax_):
+    """The port's run_polish_batch stats against hypo_tpu's, which adds
+    the fallbacks to host_long_windows."""
     for key in ("full_dispatches", "full_windows", "full_overflows",
-                "trivial_windows", "host_long_windows", "host_fallbacks"):
-        assert port[1][key] == jax_[1][key], key
+                "trivial_windows"):
+        assert port[key] == jax_[key], key
+    assert port["host_long_windows"] + port["host_fallbacks"] == \
+        jax_["host_long_windows"]
+
+
+def test_full_runner_run_polish_batch_matches_jax(monkeypatch):
+    runs = dryrun_runs(monkeypatch)
+    port, jax_ = runs["port"], runs["jax"]
+    assert port[0] == jax_[0]
+    same_tiles_and_routing(port[1], jax_[1])
     st = port[1]
-    assert st["full_windows"] > 0 and st["host_long_windows"] > 0
-    assert st["trivial_windows"] > 0
+    assert st["full_windows"] > 0 and st["host_long_windows"] >= 2
+    assert st["host_fallbacks"] >= 2
     assert st["class_windows"][1] > 0
     assert sum(st["class_tiles"]) == st["full_dispatches"]
+    assert st["rows_per_device"] == [st["full_windows"]]
 
 
 def consensus_of(wins, engine):
@@ -157,36 +164,27 @@ def test_exact_runner_options_match_jax(fix_long, use_native):
     assert (port[0] != default) == fix_long
 
 
-def test_full_runner_fix_long_run_windows_matches_jax(monkeypatch):
-    """FullDeviceRunner(..., fix_long_align_type=True).run_windows against
-    hypo_tpu's with the option, with one JAX device (HYPO_POA_NDEV=1):
-    LONG windows reach the host engine with the option, so some LONG
-    window differs from the default's (hypo_tpu's host engine, which the
-    full runner equals by default)."""
-    monkeypatch.setenv("HYPO_POA_NDEV", "1")
-    sp = ScoreParams()
-    runs = {}
-    for name, make in (
-            ("port", lambda: tfull.FullDeviceRunner(
-                sp, "cpu", fix_long_align_type=True)),
-            ("jax", lambda: jfull.FullDeviceRunner(
-                sp, fix_long_align_type=True))):
-        wins = windows(32, 24, long_arms=True)
-        runner = make()
-        assert runner.run_windows(wins) == len(wins)
-        runs[name] = ([w.consensus for w in wins], runner.stats)
+def test_full_runner_fix_long_run_polish_batch_matches_jax(monkeypatch):
+    """FullDeviceRunner(..., fix_long_align_type=True).run_polish_batch
+    against hypo_tpu's with the option: the dry run's LONG windows,
+    which carry prefix and suffix arms, reach the host engine with the
+    option (their consensus is hypo_tpu's host engine's with it), so
+    some LONG window differs from the default's, and only LONG windows
+    do."""
+    runs = dryrun_runs(monkeypatch, fix_long_align_type=True)
     port, jax_ = runs["port"], runs["jax"]
     assert port[0] == jax_[0]
-    for key in ("full_dispatches", "full_windows", "full_overflows",
-                "trivial_windows", "host_long_windows", "host_fallbacks"):
-        assert port[1][key] == jax_[1][key], key
-    assert port[1]["host_long_windows"] > 0
-    assert port[0] == consensus_of(windows(32, 24, long_arms=True),
-                                   ConsensusEngine(sp, True))
-    wins = windows(32, 24, long_arms=True)
-    default = consensus_of(wins, ConsensusEngine(sp))
+    same_tiles_and_routing(port[1], jax_[1])
+    specs = dryrun_specs(1)
+    long = [w for w in make_contig(specs, Window).windows
+            if w.wtype == LONG]
+    assert len(long) == port[1]["host_long_windows"] >= 2
+    assert all(w.pre_arms and w.suf_arms for w in long)
+    assert [c for c, s in zip(port[0], specs) if s[1] == LONG] == \
+        consensus_of(long, ConsensusEngine(ScoreParams(), True))
+    default = dryrun_runs(monkeypatch)["port"][0]
     differ = [i for i, (a, b) in enumerate(zip(port[0], default)) if a != b]
-    assert differ and all(wins[i].wtype == LONG for i in differ)
+    assert differ and all(specs[i][1] == LONG for i in differ)
 
 
 class _KeepLong:

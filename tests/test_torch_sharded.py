@@ -8,9 +8,9 @@ package, on the CPU (the kernels' plain versions):
   hypo_tpu's own two-rank FASTA;
 - the tile runner over two CPU devices (each tile split into two
   blocks of rows) against hypo_tpu's runner with ndev = 2: the same
-  consensus, tile counts, host routing and rows per device, on both of
-  its paths; the tile program's bytes over 2-4 devices equal one
-  device's;
+  consensus, tile counts, host routing and rows per device, on the dry
+  run's contig and through polish(); the tile program's bytes over 2-4
+  devices equal one device's;
 - device counts the runner must refuse.
 
 Card tests (the ``cuda`` marker) hold the runner split over two blocks
@@ -29,10 +29,12 @@ import torch
 from hypo_tpu.config import InputFlags as JInputFlags
 from hypo_tpu.config import ScoreParams, get_kmer_len
 from hypo_tpu.pipeline.polish import polish as jpolish
+from hypo_tpu.pipeline.window import Window as JWindow
 from hypo_tpu.poa import full_runner as jfull
 from hypo_tpu.sim import SimConfig, simulate
 from hypo_tpu_torch.cli import build_parser, flags_from_args
-from hypo_tpu_torch.entry import check_against_spec, dryrun_windows
+from hypo_tpu_torch.entry import (check_against_spec, dryrun_specs,
+                                  make_contig)
 from hypo_tpu_torch.native import host_api
 from hypo_tpu_torch.pipeline.polish import Polisher
 from hypo_tpu_torch.poa import device_full as TF
@@ -146,47 +148,39 @@ def test_two_rank_command_line_processes(sim4, tmp_path):
     assert _md5(out) == md5
 
 
-def _jax_runner_ndev2(monkeypatch):
-    """hypo_tpu's FullDeviceRunner over 2 of the test's virtual JAX CPU
-    devices, its dispatched tiles' row placements recorded (its
-    run_windows does not count rows per device)."""
-    monkeypatch.setenv("HYPO_POA_NDEV", "2")
-    runner = jfull.FullDeviceRunner(ScoreParams())
-    assert runner.ndev == 2
-    rows = np.zeros(2, np.int64)
-    dispatch = runner._dispatch_tile
-
-    def record(grp, ci, scores):
-        handle = dispatch(grp, ci, scores)
-        blk = runner._class_shape(ci)[3] // 2
-        rows[:] += np.bincount(handle[1] // blk, minlength=2)
-        return handle
-
-    runner._dispatch_tile = record
-    return runner, rows
-
-
-def test_runner_run_windows_over_two_cpu_devices_equals_jax(monkeypatch):
-    """The dry run's windows at four devices' count (80 device windows:
-    two class-0 tiles and a class-1 tile of 64 rows)."""
+def test_runner_on_the_dry_run_contig_over_two_cpu_devices_equals_jax(
+        monkeypatch):
+    """run_polish_batch on the dry run's contig at four devices' count
+    (80 device windows: two class-0 tiles and a class-1 tile of 64
+    rows), the port over [cpu, cpu] and hypo_tpu with HYPO_POA_NDEV=2:
+    the same consensus, tiles and rows per device; hypo_tpu counts the
+    fallbacks under host_long_windows."""
+    if not host_api.available():
+        pytest.skip("the native host library did not build")
     sp = ScoreParams()
+    specs = dryrun_specs(4)
+    ctg = make_contig(specs)
     port = tfull.FullDeviceRunner(sp, [CPU, CPU])
-    pw = dryrun_windows(4)
-    assert port.run_windows(sum(pw, [])) == len(sum(pw, []))
-    jax_runner, jax_rows = _jax_runner_ndev2(monkeypatch)
-    jw = dryrun_windows(4)
-    jax_runner.run_windows(sum(jw, []))
-    assert [w.consensus for w in sum(pw, [])] == \
-        [w.consensus for w in sum(jw, [])]
+    assert port.run_polish_batch([ctg]) == len(specs)
+    monkeypatch.setenv("HYPO_POA_NDEV", "2")
+    jctg = make_contig(specs, JWindow)
+    jax_runner = jfull.FullDeviceRunner(sp)
+    assert jax_runner.ndev == 2
+    jax_runner.run_polish_batch([jctg])
+    assert [w.consensus for w in ctg.windows] == \
+        [w.consensus for w in jctg.windows]
     st, jst = port.stats, jax_runner.stats
     for key in ("full_dispatches", "full_windows", "full_overflows",
-                "trivial_windows", "host_fallbacks", "host_long_windows"):
+                "trivial_windows"):
         assert st[key] == jst[key], key
-    assert st["rows_per_device"] == jax_rows.tolist()
+    assert st["host_long_windows"] + st["host_fallbacks"] == \
+        jst["host_long_windows"]
+    assert st["rows_per_device"] == jst["rows_per_device"].tolist()
     assert st["full_dispatches"] >= 3 and st["class_tiles"][1] >= 1
     assert st["host_fallbacks"] >= 2 and st["host_long_windows"] >= 2
     assert sum(st["rows_per_device"]) == st["full_windows"]
-    check_against_spec(port, pw[0])
+    assert min(st["rows_per_device"]) > 0
+    check_against_spec(ctg, specs)
 
 
 def test_runner_run_polish_batch_over_two_cpu_devices_equals_jax(
@@ -292,16 +286,17 @@ def test_runner_split_on_the_card(cuda_devices, monkeypatch, layout):
     else:
         devices = [cuda_devices[0]] * 2
     sp = ScoreParams()
+    specs = dryrun_specs(2)
     runs = []
     for devs in (devices, devices[:1]):
-        windows = dryrun_windows(2)
+        ctg = make_contig(specs)
         runner = tfull.FullDeviceRunner(sp, devs)
-        runner.run_windows(sum(windows, []))
-        runs.append((windows, runner))
-    (w2, r2), (w1, _r1) = runs
-    assert [w.consensus for w in sum(w2, [])] == \
-        [w.consensus for w in sum(w1, [])]
-    check_against_spec(r2, w2[0])
+        runner.run_polish_batch([ctg])
+        runs.append((ctg, runner))
+    (c2, r2), (c1, _r1) = runs
+    assert [w.consensus for w in c2.windows] == \
+        [w.consensus for w in c1.windows]
+    check_against_spec(c2, specs)
     rows = r2.stats["rows_per_device"]
     assert len(rows) == 2 and min(rows) > 0
     assert sum(rows) == r2.stats["full_windows"]
