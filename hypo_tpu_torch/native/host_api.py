@@ -123,6 +123,23 @@ def _load():
         lib.hypo_fastx_codes.argtypes = [ctypes.c_void_p, _u8p,
                                          ctypes.c_int64]
         lib.hypo_fastx_close.argtypes = [ctypes.c_void_p]
+        lib.hypo_strong_regions.restype = ctypes.c_int64
+        lib.hypo_strong_regions.argtypes = [
+            _i64p, _i64p, _u8p, ctypes.c_int64, ctypes.c_int,
+            _i64p, _i64p, _i64p]
+        lib.hypo_divide_regions.restype = ctypes.c_void_p
+        lib.hypo_divide_regions.argtypes = [
+            _u8p, ctypes.c_int64, _i64p, ctypes.c_int64, ctypes.c_int,
+            _i64p, _i64p, _i64p, _u8p, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int64]
+        lib.hypo_regions_count.restype = ctypes.c_int64
+        lib.hypo_regions_count.argtypes = [ctypes.c_void_p]
+        for nm, restype in (("hypo_regions_starts", _i64p),
+                            ("hypo_regions_types", _u8p),
+                            ("hypo_regions_infos", _i64p)):
+            getattr(lib, nm).restype = restype
+            getattr(lib, nm).argtypes = [ctypes.c_void_p]
+        lib.hypo_regions_free.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -286,6 +303,67 @@ def mw_minimizer_build(codes: np.ndarray, begs: np.ndarray,
     finally:
         lib.hypo_mw_min_free(h)
     return off, vals, pos
+
+
+def strong_regions(positions: np.ndarray, kids: np.ndarray,
+                   tier: np.ndarray, k: int):
+    """Native twin of segment.sr.scan_strong_regions: (sr_pos, sr_len,
+    anchor_kmers), int64, from the solid positions, their k-mer ids and
+    their tiers (segment.sr.sr_tiers)."""
+    lib = _load()
+    pos = np.ascontiguousarray(positions, np.int64)
+    kid = np.ascontiguousarray(kids, np.int64)
+    tier = np.ascontiguousarray(tier, np.uint8)
+    n = len(pos)
+    if len(kid) != n or len(tier) != n:
+        raise ValueError(f"{n} solid positions, {len(kid)} k-mer ids and "
+                         f"{len(tier)} tiers")
+    sr_pos = np.empty(n, np.int64)
+    sr_len = np.empty(n, np.int64)
+    anchors = np.empty(2 * n + 1, np.int64)
+    nsr = int(lib.hypo_strong_regions(
+        _ptr(pos, _i64p), _ptr(kid, _i64p), _ptr(tier, _u8p), n, k,
+        _ptr(sr_pos, _i64p), _ptr(sr_len, _i64p), _ptr(anchors, _i64p)))
+    return (sr_pos[:nsr].copy(), sr_len[:nsr].copy(),
+            anchors[:2 * nsr + 1].copy())
+
+
+def divide_regions(codes: np.ndarray, stage1_starts: np.ndarray,
+                   is_win_even: bool, mw_off: np.ndarray,
+                   mw_vals: np.ndarray, mw_pos: np.ndarray,
+                   mw_keep: np.ndarray, mk: int, ideal: int,
+                   search_th: int):
+    """Native twin of a contig's walk over its MegaWindows and SRs with
+    segment.regions.divide / force_divide: (starts int64, types uint8,
+    infos int64) of its regions in order, without the end dummy.
+    ``mw_keep`` marks the minimizers whose coverage and support pass."""
+    lib = _load()
+    codes = np.ascontiguousarray(codes, np.uint8)
+    s1 = np.ascontiguousarray(stage1_starts, np.int64)
+    off = np.ascontiguousarray(mw_off, np.int64)
+    vals = np.ascontiguousarray(mw_vals, np.int64)
+    pos = np.ascontiguousarray(mw_pos, np.int64)
+    keep = np.ascontiguousarray(mw_keep, np.uint8)
+    n_mw = (len(s1) - 1 + int(bool(is_win_even))) // 2
+    if (len(off) < n_mw + 1 or len(vals) != len(pos)
+            or len(keep) != len(pos) or int(off[n_mw]) > len(pos)):
+        raise ValueError("the MegaWindows' minimizer tables do not match "
+                         "the stage-1 boundaries")
+    h = lib.hypo_divide_regions(
+        _ptr(codes, _u8p), len(codes), _ptr(s1, _i64p), len(s1),
+        int(is_win_even), _ptr(off, _i64p), _ptr(vals, _i64p),
+        _ptr(pos, _i64p), _ptr(keep, _u8p), mk, ideal, search_th)
+    try:
+        n = int(lib.hypo_regions_count(h))
+        if n == 0:
+            return (np.zeros(0, np.int64), np.zeros(0, np.uint8),
+                    np.zeros(0, np.int64))
+        as_arr = np.ctypeslib.as_array
+        return (as_arr(lib.hypo_regions_starts(h), (n,)).copy(),
+                as_arr(lib.hypo_regions_types(h), (n,)).copy(),
+                as_arr(lib.hypo_regions_infos(h), (n,)).copy())
+    finally:
+        lib.hypo_regions_free(h)
 
 
 def minimizer_support(contig, alignments: List, mk: int, mw: int,
@@ -552,8 +630,7 @@ def find_arms(contig, alignments: List, k: int, mk: int, is_long: bool,
         anchors = np.zeros(2, dtype=np.int64)
     else:
         starts = np.ascontiguousarray(contig.reg_starts, dtype=np.int64)
-        rtype = np.ascontiguousarray(
-            np.array(contig.reg_type, dtype=np.uint8))
+        rtype = np.ascontiguousarray(contig.reg_type, dtype=np.uint8)
         rinfo = np.zeros(len(starts) + 1, dtype=np.int64)
         ri = np.asarray(contig.reg_info, dtype=np.int64)
         rinfo[:len(ri)] = ri

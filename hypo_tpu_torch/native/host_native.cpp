@@ -1082,6 +1082,247 @@ void hypo_minimizer_support(const int64_t* starts, int64_t nstarts,
     }
 }
 
+// ---------------------------------------------------------------------
+// Strong regions (reference Contig::prepare_for_division,
+// src/Contig.cpp:75-139): the sequential part of the two-tier scan over
+// a contig's solid positions, twin of segment/sr.scan_strong_regions.
+// tier[i] is 2 for the 80% tier, 1 for the 40% tier and 0 for neither
+// (segment/sr.sr_tiers).  sr_pos and sr_len hold n entries, anchors
+// 2n + 1 (an SR closes on a valid k-mer, so there are at most n);
+// returns the number of SRs.
+int64_t hypo_strong_regions(const int64_t* pos, const int64_t* kids,
+                            const uint8_t* tier, int64_t n, int k,
+                            int64_t* sr_pos, int64_t* sr_len,
+                            int64_t* anchors) {
+    int64_t nsr = 0;
+    bool in_sr = false, pvs_80 = true;
+    int64_t first_kind = 0, last_kind = 0, first_pos = 0, last_pos = 0;
+    anchors[0] = 0;
+    auto close = [&]() {
+        sr_pos[nsr] = first_pos;
+        sr_len[nsr] = last_pos - first_pos;
+        anchors[1 + 2 * nsr] = kids[first_kind];
+        anchors[2 + 2 * nsr] = kids[last_kind];
+        ++nsr;
+        in_sr = false;
+        pvs_80 = true;
+    };
+    for (int64_t i = 0; i < n; ++i) {
+        const int64_t p = pos[i];
+        if (in_sr && p > last_pos) close();
+        bool valid = false;
+        if (tier[i] == 2) {
+            valid = true;
+            pvs_80 = true;
+        } else if (tier[i] == 1) {
+            valid = pvs_80;
+            pvs_80 = false;
+        }
+        if (valid) {
+            if (!in_sr) {
+                first_kind = i;
+                first_pos = p;
+                in_sr = true;
+            }
+            last_kind = i;
+            last_pos = p + k;
+        }
+        if (in_sr && p == last_pos) close();
+    }
+    if (in_sr) close();
+    return nsr;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Region division (reference Contig::divide / Contig::force_divide,
+// src/Contig.cpp:187-245, 526-711): a contig's MegaWindows cut at
+// supported minimizers, oversized stretches at homopolymer-safe points,
+// and its SRs between them, in one call; twin of segment/regions.divide
+// and force_divide driven by pipeline/contig.Contig.divide_into_regions,
+// with the reference's typing quirks ((n,m) -> OTHER in force_divide's
+// single-window case).
+namespace {
+enum : uint8_t {
+    RT_SWS = 0, RT_SW, RT_WS, RT_MWM, RT_MW, RT_WM, RT_SWM, RT_MWS,
+    RT_OTHER, RT_LONG, RT_SR, RT_MSR
+};
+
+struct Regions {
+    std::vector<int64_t> starts;
+    std::vector<uint8_t> types;
+    std::vector<int64_t> infos;
+    // scratch of one MegaWindow
+    std::vector<int64_t> supp_pos, supp_min, cut_pos;
+    std::vector<size_t> cuts;
+
+    void add(int64_t s, uint8_t t, int64_t info = 0) {
+        starts.push_back(s);
+        types.push_back(t);
+        infos.push_back(info);
+    }
+};
+
+void force_divide(Regions& R, const uint8_t* codes, int64_t beg,
+                  int64_t end, char pvs, char nxt, int64_t ideal,
+                  int64_t search_th) {
+    auto& cut_pos = R.cut_pos;
+    cut_pos.clear();
+    int64_t start = beg, remaining = end - start;
+    while (remaining > ideal) {
+        int64_t search = start + search_th;
+        while (search < end) {
+            const uint8_t base = codes[search];
+            if (base == codes[search - 1])
+                search += 1;
+            else if (search + 1 < end && base == codes[search + 1])
+                search += 2;
+            else if (search + 2 < end &&
+                     codes[search + 2] == codes[search + 1])
+                search += 3;
+            else
+                break;
+        }
+        if (search >= end) break;
+        cut_pos.push_back(start);
+        start = search + 1;
+        remaining = end - start;
+    }
+    if (start < end) cut_pos.push_back(start);
+
+    if (cut_pos.size() == 1) {
+        uint8_t t = RT_OTHER;   // (n,m) and (n,n) included
+        if (pvs == 's')
+            t = nxt == 's' ? RT_SWS : nxt == 'm' ? RT_SWM : RT_SW;
+        else if (pvs == 'm')
+            t = nxt == 's' ? RT_MWS : nxt == 'm' ? RT_MWM : RT_MW;
+        else if (nxt == 's')
+            t = RT_WS;
+        R.add(beg, t);
+        return;
+    }
+    R.add(beg, pvs == 's' ? RT_SW : pvs == 'm' ? RT_MW : RT_OTHER);
+    for (size_t i = 1; i + 1 < cut_pos.size(); ++i)
+        R.add(cut_pos[i], RT_OTHER);
+    R.add(cut_pos.back(), nxt == 's' ? RT_WS : nxt == 'm' ? RT_WM : RT_OTHER);
+}
+
+void divide(Regions& R, const uint8_t* codes, const int64_t* m_vals,
+            const int64_t* m_pos, const uint8_t* m_keep, int64_t nm,
+            int64_t beg, int64_t end, char pvs, char nxt, int mk,
+            int64_t ideal, int64_t search_th) {
+    const int64_t too_large = 2 * ideal;
+    auto& supp_pos = R.supp_pos;
+    auto& supp_min = R.supp_min;
+    auto& cuts = R.cuts;
+    supp_pos.clear();
+    supp_min.clear();
+    cuts.clear();
+    for (int64_t i = 0; i < nm; ++i)
+        if (m_keep[i] && m_pos[i] + mk < end) {
+            supp_pos.push_back(m_pos[i]);
+            supp_min.push_back(m_vals[i]);
+        }
+    // cutting minimizers, greedily at <= ideal spacing
+    int64_t remaining = end - beg, start = beg;
+    const size_t ns = supp_pos.size();
+    for (size_t mi = 0; mi < ns; ++mi) {
+        if (remaining <= ideal) break;
+        const bool should_break =
+            mi == ns - 1 || supp_pos[mi + 1] > ideal + start;
+        if (should_break && supp_pos[mi] > start) {
+            cuts.push_back(mi);
+            start = supp_pos[mi] + mk;
+            remaining = end - start;
+        }
+    }
+    if (cuts.empty()) {
+        if (end > beg + too_large) {
+            force_divide(R, codes, beg, end, pvs, nxt, ideal, search_th);
+        } else {
+            uint8_t t = RT_OTHER;
+            if (pvs == 's')
+                t = nxt == 's' ? RT_SWS : RT_SW;
+            else if (nxt == 's')
+                t = RT_WS;
+            R.add(beg, t);
+        }
+        return;
+    }
+    // first window
+    int64_t win_end = supp_pos[cuts[0]];
+    if (win_end > beg + too_large)
+        force_divide(R, codes, beg, win_end, pvs, 'm', ideal, search_th);
+    else
+        R.add(beg, pvs == 's' ? RT_SWM : RT_WM);
+    // internal: an MSR at each cut minimizer, then a window to the next
+    for (size_t c = 1; c < cuts.size(); ++c) {
+        const size_t p = cuts[c - 1];
+        R.add(supp_pos[p], RT_MSR, supp_min[p]);
+        const int64_t win_start = supp_pos[p] + mk;
+        win_end = supp_pos[cuts[c]];
+        if (win_end > too_large + win_start)
+            force_divide(R, codes, win_start, win_end, 'm', 'm', ideal,
+                         search_th);
+        else
+            R.add(win_start, RT_MWM);
+    }
+    // last: an MSR, then the closing window to `end`
+    const size_t p = cuts.back();
+    R.add(supp_pos[p], RT_MSR, supp_min[p]);
+    const int64_t win_start = supp_pos[p] + mk;
+    if (end > too_large + win_start)
+        force_divide(R, codes, win_start, end, 'm', nxt, ideal, search_th);
+    else
+        R.add(win_start, nxt == 's' ? RT_MWS : RT_MW);
+}
+}  // namespace
+
+extern "C" {
+
+// s1: the stage-1 boundaries (SR and MegaWindow edges, the contig's end
+// last), ns1 of them; MegaWindow m's minimizers are [mw_off[m],
+// mw_off[m + 1]) of mw_vals / mw_pos (contig-absolute), mw_keep 1 where
+// the minimizer's coverage and support pass.  Regions in contig order,
+// without the end dummy: start, type (RT_*), info (an SR's rank from 1,
+// an MSR's minimizer, else 0).
+void* hypo_divide_regions(const uint8_t* codes, int64_t clen,
+                          const int64_t* s1, int64_t ns1, int is_win_even,
+                          const int64_t* mw_off, const int64_t* mw_vals,
+                          const int64_t* mw_pos, const uint8_t* mw_keep,
+                          int mk, int64_t ideal, int64_t search_th) {
+    auto* R = new Regions();
+    int64_t sr_rank = 1;
+    for (int64_t j = 0; j + 1 < ns1; ++j) {
+        const int64_t s = s1[j], e = s1[j + 1];
+        if ((j % 2 == 0) == (is_win_even != 0)) {   // a MegaWindow
+            const int64_t m = is_win_even ? j / 2 : (j - 1) / 2;
+            const int64_t o0 = mw_off[m], o1 = mw_off[m + 1];
+            divide(*R, codes, mw_vals + o0, mw_pos + o0, mw_keep + o0,
+                   o1 - o0, s, e, j == 0 ? 'n' : 's', e == clen ? 'n' : 's',
+                   mk, ideal, search_th);
+        } else {
+            R->add(s, RT_SR, sr_rank++);
+        }
+    }
+    return R;
+}
+
+int64_t hypo_regions_count(void* h) {
+    return (int64_t)((Regions*)h)->starts.size();
+}
+const int64_t* hypo_regions_starts(void* h) {
+    return ((Regions*)h)->starts.data();
+}
+const uint8_t* hypo_regions_types(void* h) {
+    return ((Regions*)h)->types.data();
+}
+const int64_t* hypo_regions_infos(void* h) {
+    return ((Regions*)h)->infos.data();
+}
+void hypo_regions_free(void* h) { delete (Regions*)h; }
+
 }  // extern "C"
 
 // ---------------------------------------------------------------------

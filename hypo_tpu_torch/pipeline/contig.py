@@ -5,23 +5,44 @@ Port of reference src/Contig.cpp / include/Contig.hpp with sdsl
 bit-vectors replaced by sorted position arrays and the mutexed counters
 replaced by the batch updates in hypo_tpu.segment.support.
 
+The region map is flat arrays from the strong-region scan to the
+output: ``reg_starts`` (int64, with the contig's end as a dummy last
+entry), ``reg_type`` (uint8, ``RegionType``) and ``reg_info`` (int64),
+with ``windows`` holding a Window for each weak region and None for the
+rest.  Where the host library loaded, the scan and the division are one
+native call a contig each (native.host_api.strong_regions,
+divide_regions); otherwise segment.sr and segment.regions walk them in
+Python, with the same result.  Both count the regions they divide
+(counters ``pipeline.regions_native`` and ``pipeline.regions_python``).
+The prune after the short arms is one rule over counter arrays
+(``_prune_short_windows``), fed from the native arm table
+(``fill_short_windows_from_table``) or from the windows' own counters
+(``fill_short_windows``); the output is one decode of the contig, cut
+between the windows' consensus.
+
 Copied from hypo_tpu/pipeline/contig.py.
 """
 from __future__ import annotations
 
-import math
 from typing import List, Optional
 
 import numpy as np
 
-from ..config import ARMS_SETTINGS, WindowSettings
+from ..config import ARMS_SETTINGS, MINIMIZER_SETTINGS, WindowSettings
 from ..dna import decode, encode
 from ..kmers.solid import SolidKmers
+from ..native import host_api
 from ..segment.minimizers import build_mw_minimizer_info
 from ..segment.regions import RegionBuilder, RegionType, divide
 from ..segment.solid_pos import find_solid_pos
-from ..segment.sr import find_strong_regions
-from .window import LONG, SHORT, Window
+from ..segment.sr import StrongRegions, scan_strong_regions, sr_tiers
+from ..utils import trace
+from .window import LONG, Window
+
+# a window beside an SR clears its prefix and suffix arms from
+# min_internal_num2 internal ones on (Contig.cpp:279-281)
+_NEAR_STRONG = (RegionType.SWS, RegionType.SW, RegionType.WS,
+                RegionType.MWS, RegionType.SWM)
 
 
 class Contig:
@@ -47,8 +68,8 @@ class Contig:
         self.mw_cov: Optional[np.ndarray] = None
         self.mw_sup: Optional[np.ndarray] = None
         self.reg_starts: Optional[np.ndarray] = None
-        self.reg_type: Optional[List[int]] = None
-        self.reg_info: Optional[List[int]] = None
+        self.reg_type: Optional[np.ndarray] = None
+        self.reg_info: Optional[np.ndarray] = None
         self.windows: List[Optional[Window]] = []
         self.pseudo_starts: Optional[np.ndarray] = None
         self.pseudo_types: Optional[List[int]] = None
@@ -63,33 +84,33 @@ class Contig:
 
     # -- stage: SR + MegaWindows (Contig.cpp:75-185) ----------------------
     def prepare_for_division(self, k: int, ws: WindowSettings) -> None:
-        sr = find_strong_regions(self.solid_pos, self.kids,
-                                 self.kmer_coverage, self.kmer_support, k)
+        scan = (host_api.strong_regions if host_api.available()
+                else scan_strong_regions)
+        sr = StrongRegions(*scan(
+            self.solid_pos, self.kids,
+            sr_tiers(self.kmer_coverage, self.kmer_support), k))
         self.anchor_kmers = sr.anchor_kmers
         self.num_sr = sr.num_sr
         self.len_sr = sr.len_sr
         clen = self.length
-        sr_pos = sr.sr_pos
-        sr_len = sr.sr_len
-        self.is_win_even = not (sr.num_sr > 0 and int(sr_pos[0]) == 0)
-
-        starts: List[int] = [0]
-        mw_begs: List[int] = [0] if self.is_win_even else []
-        mw_ends: List[int] = ([int(sr_pos[0]) if sr.num_sr else clen]
-                              if self.is_win_even else [])
-        for i in range(sr.num_sr):
-            s = int(sr_pos[i])
-            e = s + int(sr_len[i])
-            starts.append(s)
-            starts.append(e)
-            mw_begs.append(e)
-            mw_ends.append(int(sr_pos[i + 1]) if i + 1 < sr.num_sr
-                           else clen)
-        starts.append(clen)
-        self._build_mw_minimizers(np.array(mw_begs, np.int64),
-                                  np.array(mw_ends, np.int64), ws)
-        uniq = sorted(set(starts))
-        self.stage1_starts = np.array(uniq, dtype=np.int64)
+        sr_beg = sr.sr_pos
+        sr_end = sr.sr_pos + sr.sr_len
+        self.is_win_even = not (sr.num_sr > 0 and int(sr_beg[0]) == 0)
+        # MegaWindows: the stretches before, between and after the SRs
+        if self.is_win_even:
+            mw_begs = np.concatenate(([0], sr_end))
+            mw_ends = np.concatenate((sr_beg, [clen]))
+        else:
+            mw_begs = sr_end
+            mw_ends = np.concatenate((sr_beg[1:], [clen]))
+        self._build_mw_minimizers(mw_begs.astype(np.int64),
+                                  mw_ends.astype(np.int64), ws)
+        edges = np.empty(2 * sr.num_sr + 2, np.int64)
+        edges[0] = 0
+        edges[1:-1:2] = sr_beg
+        edges[2:-1:2] = sr_end
+        edges[-1] = clen
+        self.stage1_starts = np.unique(edges)
         # free solid-position state (reference does the same)
         self.solid_pos = None
         self.kids = None
@@ -105,7 +126,6 @@ class Contig:
         not longer than the ideal window get empty tables."""
         from ..config import MINIMIZER_SETTINGS as MS
         from ..segment.minimizers import _POLY
-        from ..native import host_api
         if host_api.available() and len(begs):
             off, vals, pos = host_api.mw_minimizer_build(
                 self.codes, begs, ends, MS.k, MS.w,
@@ -132,6 +152,44 @@ class Contig:
 
     # -- stage: region division (Contig.cpp:187-245) ----------------------
     def divide_into_regions(self, ws: WindowSettings) -> None:
+        MS = MINIMIZER_SETTINGS
+        clen = self.length
+        if host_api.available():
+            cov = self.mw_cov.astype(np.int64)
+            keep = ((cov >= MS.cov_th)
+                    & (self.mw_sup.astype(np.int64)
+                       >= (MS.supp_frac * cov).astype(np.int64)))
+            starts, types, infos = host_api.divide_regions(
+                self.codes, self.stage1_starts, self.is_win_even,
+                self.mw_off, self.mw_vals, self.mw_pos, keep, MS.k,
+                ws.ideal_swind_size, ws.wind_size_search_th)
+            trace.count("pipeline.regions_native", len(types))
+        else:
+            starts, types, infos = self._divide_python(ws)
+            trace.count("pipeline.regions_python", len(types))
+        self.reg_starts = np.append(starts, clen).astype(np.int64)
+        self.reg_type = np.append(types, RegionType.SR).astype(np.uint8)
+        self.reg_info = infos
+        self.mw_off = None
+        self.mw_vals = None
+        self.mw_pos = None
+        self.mw_cov = None
+        self.mw_sup = None
+        # a window for each weak region; None for SRs, MSRs and the dummy
+        n = len(types)
+        weak = np.nonzero((types != RegionType.SR)
+                          & (types != RegionType.MSR))[0]
+        rs = self.reg_starts
+        codes = self.codes
+        windows: List[Optional[Window]] = [None] * (n + 1)
+        for i, a, b in zip(weak.tolist(), rs[weak].tolist(),
+                           rs[weak + 1].tolist()):
+            windows[i] = Window(codes[a:b])
+        self.windows = windows
+
+    def _divide_python(self, ws: WindowSettings):
+        """The division's Python walk (segment.regions), twin of
+        native.host_api.divide_regions: (starts, types, infos)."""
         clen = self.length
         builder = RegionBuilder()
         sr_rank = 1
@@ -150,22 +208,9 @@ class Contig:
             else:  # an SR
                 builder.add(s, RegionType.SR, sr_rank)
                 sr_rank += 1
-        self.reg_starts = np.array(builder.starts + [clen], dtype=np.int64)
-        self.reg_type = builder.types + [RegionType.SR]
-        self.reg_info = builder.infos
-        self.mw_off = None
-        self.mw_vals = None
-        self.mw_pos = None
-        self.mw_cov = None
-        self.mw_sup = None
-        self.windows = []
-        for i, t in enumerate(self.reg_type[:-1]):
-            if t in (RegionType.SR, RegionType.MSR):
-                self.windows.append(None)
-            else:
-                dr = self.codes[self.reg_starts[i]:self.reg_starts[i + 1]]
-                self.windows.append(Window(dr, SHORT))
-        self.windows.append(None)  # dummy
+        return (np.array(builder.starts, np.int64),
+                np.array(builder.types, np.uint8),
+                np.array(builder.infos, np.int64))
 
     def num_regions(self) -> int:
         return len(self.reg_type) - 1
@@ -197,72 +242,97 @@ class Contig:
             else:
                 w.add_internal(codes)
 
-    def add_arm_table_counts(self, table) -> None:
-        """Counters-only twin of add_arm_table for the device fast path:
-        updates every window's arm counters and longest-pre/suf lengths
-        from the native arm table WITHOUT materializing per-window arm
-        arrays (the device tile builder reads arms straight from the
-        flat table, hypo_tpu.native.host_api.tile_jobs).  Only valid for
-        the SHORT pass — long pseudo-windows apply the per-arm filter
-        and must go through add_arm_table."""
+    def fill_short_windows_from_table(self, table) -> None:
+        """Counters-only twin of add_arm_table + fill_short_windows for
+        the tile path: each window's arm counters and longest-pre/suf
+        lengths from the native arm table, without per-window arm
+        arrays (the tile builder reads arms straight from the flat
+        table, native.host_api.tile_jobs), then the prune.  Only the
+        windows that survive are touched.  For the SHORT pass on the
+        windows as divide_into_regions left them: long pseudo-windows
+        apply the per-arm filter and go through add_arm_table."""
         _aln_idx, windex, qb, qe, armtype = table
-        nreg = len(self.windows)
-        live = np.fromiter((w is not None for w in self.windows),
-                           dtype=bool, count=nreg)
-        m = live[windex]
-        wx = np.asarray(windex)[m]
-        t = np.asarray(armtype)[m]
-        ln = (np.asarray(qe) - np.asarray(qb))[m]
-        ni = np.bincount(wx[t == 0], minlength=nreg)
-        npre = np.bincount(wx[t == 1], minlength=nreg)
-        nsuf = np.bincount(wx[t == 2], minlength=nreg)
-        nemp = np.bincount(wx[t == 3], minlength=nreg)
-        lp = np.zeros(nreg, np.int64)
-        np.maximum.at(lp, wx[t == 1], ln[t == 1])
-        ls = np.zeros(nreg, np.int64)
-        np.maximum.at(ls, wx[t == 2], ln[t == 2])
-        for i, w in enumerate(self.windows):
-            if w is None:
-                continue
-            w.num_internal += int(ni[i])
-            w.num_pre += int(npre[i])
-            w.num_suf += int(nsuf[i])
-            w.num_empty += int(nemp[i])
-            w.longest_pre_len = max(w.longest_pre_len, int(lp[i]))
-            w.longest_suf_len = max(w.longest_suf_len, int(ls[i]))
+        nreg = self.num_regions()
+        # one key a (region, arm type): internal, prefix, suffix, empty;
+        # a region's counters count only where it holds a window
+        key = np.asarray(windex, np.intp) * 4 + np.asarray(armtype)
+        by_type = np.bincount(key, minlength=4 * (nreg + 1))
+        longest = np.zeros(4 * (nreg + 1), np.int64)
+        np.maximum.at(longest, key,
+                      np.asarray(qe, np.int64) - np.asarray(qb, np.int64))
+        counts = np.concatenate(
+            (by_type.reshape(-1, 4).T, longest.reshape(-1, 4).T[1:3]))
+        counts = counts[:, :nreg]
+        live = self._live_windows()
+        keep, clear = self._prune_short_windows(live, counts)
+        ni, npre, nsuf, nemp, lp, ls = counts[:, keep]
+        npre[clear[keep]] = 0
+        nsuf[clear[keep]] = 0
+        windows = self.windows
+        for i, a, b, c, d, e, f in zip(
+                np.nonzero(keep)[0].tolist(), ni.tolist(), npre.tolist(),
+                nsuf.tolist(), nemp.tolist(), lp.tolist(), ls.tolist()):
+            w = windows[i]
+            w.num_internal = a
+            w.num_pre = b
+            w.num_suf = c
+            w.num_empty = d
+            w.longest_pre_len = e
+            w.longest_suf_len = f
 
     def fill_short_windows(self, alignments) -> None:
+        """Each alignment's arms into its windows, then the prune over
+        the windows' own counters."""
         for aln in alignments:
             aln.add_arms(self)
+        live = self._live_windows()
+        idx = np.nonzero(live)[0]
+        windows = self.windows
+        counts = np.zeros((6, self.num_regions()), np.int64)
+        if len(idx):
+            counts[:, idx] = np.array(
+                [(w.num_internal, w.num_pre, w.num_suf, w.num_empty,
+                  w.longest_pre_len, w.longest_suf_len)
+                 for w in (windows[i] for i in idx.tolist())],
+                np.int64).T
+        _keep, clear = self._prune_short_windows(live, counts)
+        for i in np.nonzero(clear)[0].tolist():
+            windows[i].clear_pre_suf()
+
+    def _live_windows(self) -> np.ndarray:
+        """Regions (the dummy left out) that hold a window."""
+        n = self.num_regions()
+        return np.fromiter((w is not None for w in self.windows[:n]),
+                           bool, n)
+
+    def _prune_short_windows(self, live: np.ndarray, counts: np.ndarray):
+        """The short pass's prune (Contig.cpp:249-289) as one array rule
+        over every region: ``live`` marks the regions with a window,
+        ``counts`` holds their (internal, prefix, suffix, empty, longest
+        prefix, longest suffix) counters by region.  Drops the windows
+        with too little evidence (set to None) and returns (keep,
+        clear): the regions whose window survives, and those among them
+        whose prefix and suffix arms are to be cleared."""
         A = ARMS_SETTINGS
-        for i in range(self.num_regions()):
-            t = self.reg_type[i]
-            if t in (RegionType.SR, RegionType.MSR):
-                continue
-            w = self.windows[i]
-            if w is None:
-                continue
-            discarded = False
-            internal_contrib = w.get_num_internal()
-            if internal_contrib < A.min_short_num:
-                win_len = int(self.reg_starts[i + 1] - self.reg_starts[i])
-                covered = (w.longest_pre_len + w.longest_suf_len
-                           >= win_len)
-                sufficient = (w.num_pre >= A.min_short_num
-                              and w.num_suf >= A.min_short_num)
-                if not (covered and sufficient):
-                    self.windows[i] = None
-                    discarded = True
-            if not discarded:
-                contrib = w.get_num_total()
-                cond0 = internal_contrib > A.min_internal_num1
-                cond1 = (contrib >= A.min_contrib and internal_contrib
-                         >= math.floor(A.min_internal_contrib * contrib))
-                cond2 = (t in (RegionType.SWS, RegionType.SW, RegionType.WS,
-                               RegionType.MWS, RegionType.SWM)
-                         and internal_contrib >= A.min_internal_num2)
-                if cond0 or cond1 or cond2:
-                    w.clear_pre_suf()
+        ni, npre, nsuf, nemp, lp, ls = counts
+        t = self.reg_type[:-1]
+        live = live & (t != RegionType.SR) & (t != RegionType.MSR)
+        internal = ni + nemp
+        total = internal + npre + nsuf
+        covered = lp + ls >= np.diff(self.reg_starts)
+        sufficient = (npre >= A.min_short_num) & (nsuf >= A.min_short_num)
+        drop = live & (internal < A.min_short_num) & ~(covered & sufficient)
+        keep = live & ~drop
+        clear = keep & ((internal > A.min_internal_num1)
+                        | ((total >= A.min_contrib)
+                           & (internal >= np.floor(
+                               A.min_internal_contrib * total)))
+                        | (np.isin(t, _NEAR_STRONG)
+                           & (internal >= A.min_internal_num2)))
+        windows = self.windows
+        for i in np.nonzero(drop)[0].tolist():
+            windows[i] = None
+        return keep, clear
 
     # -- stage: long pseudo-windows (Contig.cpp:292-343) ------------------
     def prepare_long_windows(self, ws: WindowSettings) -> None:
@@ -272,9 +342,11 @@ class Contig:
         pvs_iswin = True
         cur_len = 0
         num_reg = len(self.reg_type)  # including the dummy
+        types = self.reg_type.tolist()
+        rs = self.reg_starts.tolist()
         for i in range(num_reg):
-            pos = int(self.reg_starts[i])
-            if (self.reg_type[i] in (RegionType.SR, RegionType.MSR)
+            pos = rs[i]
+            if (types[i] in (RegionType.SR, RegionType.MSR)
                     or self.windows[i] is not None):
                 if pvs_iswin or i == num_reg - 1:
                     starts.append(pos)
@@ -283,7 +355,7 @@ class Contig:
                     cur_len = 0
                 pvs_iswin = False
             else:  # a window with no short arms
-                winlen = int(self.reg_starts[i + 1]) - pos
+                winlen = rs[i + 1] - pos
                 if (pos == 0 or cur_len + winlen > ws.ideal_lwind_size
                         or not pvs_iswin):
                     starts.append(pos)
@@ -308,12 +380,12 @@ class Contig:
         for aln in alignments:
             aln.add_arms(self)
         A = ARMS_SETTINGS
-        for i in range(self.num_regions()):
-            if self.reg_type[i] == RegionType.LONG:
-                w = self.windows[i]
-                if w is not None and (w.get_num_internal()
-                                      > A.min_internal_num3):
-                    w.clear_pre_suf()
+        long_ids = np.nonzero(self.reg_type[:-1] == RegionType.LONG)[0]
+        for i in long_ids.tolist():
+            w = self.windows[i]
+            if w is not None and (w.get_num_internal()
+                                  > A.min_internal_num3):
+                w.clear_pre_suf()
         self.pseudo_starts = None
         self.pseudo_types = None
         self.true_reg_id = None
@@ -347,16 +419,26 @@ class Contig:
 
     # -- output (Contig.cpp:345-366) --------------------------------------
     def polished_seq(self, no_long_reads: bool) -> str:
-        parts: List[str] = []
-        cur = int(self.reg_starts[0])
-        for i in range(self.num_regions()):
-            nxt = int(self.reg_starts[i + 1])
-            t = self.reg_type[i]
-            if t in (RegionType.SR, RegionType.MSR):
-                parts.append(decode(self.codes[cur:nxt]))
-            elif self.windows[i] is not None:
-                parts.append(self.windows[i].consensus or "")
-            elif no_long_reads:
-                parts.append(decode(self.codes[cur:nxt]))
-            cur = nxt
-        return "".join(parts)
+        """The draft's text for SRs, MSRs and (with ``no_long_reads``)
+        regions whose window was dropped, each maximal run of them one
+        slice of the contig decoded once; each window's consensus
+        between the runs; nothing for a dropped window's region when
+        long reads were given (a LONG window covers it)."""
+        n = self.num_regions()
+        t = self.reg_type[:n]
+        win = self._live_windows()
+        draft = (t == RegionType.SR) | (t == RegionType.MSR)
+        if no_long_reads:
+            draft |= ~win
+        win &= ~draft
+        first = np.nonzero(draft & ~np.concatenate(([False], draft[:-1])))[0]
+        last = np.nonzero(draft & ~np.concatenate((draft[1:], [False])))[0]
+        text = decode(self.codes)
+        rs = self.reg_starts
+        windows = self.windows
+        parts = np.full(n, "", object)
+        parts[first] = [text[a:b] for a, b in zip(rs[first].tolist(),
+                                                  rs[last + 1].tolist())]
+        parts[win] = [windows[i].consensus or ""
+                      for i in np.nonzero(win)[0].tolist()]
+        return "".join(parts.tolist())

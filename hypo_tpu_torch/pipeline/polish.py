@@ -528,8 +528,8 @@ class Polisher:
         mon.start("pipeline.window_fill")
         for cid in range(lo, hi):
             if fast_tiles:
-                self.contigs[cid].add_arm_table_counts(arm_tables.pop(cid))
-                self.contigs[cid].fill_short_windows([])
+                self.contigs[cid].fill_short_windows_from_table(
+                    arm_tables.pop(cid))
             elif native_host:
                 self.contigs[cid].add_arm_table(store[cid],
                                                 arm_tables.pop(cid))

@@ -9,7 +9,7 @@ Copied from hypo_tpu/pipeline/window.py.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 
@@ -19,6 +19,11 @@ SHORT, LONG = 0, 1
 
 
 class Window:
+    """A window's arm lists start as the shared empty tuple and become
+    lists at their first arm: a contig holds one window a weak region
+    (~100,000 on a 4.6 Mbp draft), most of which the tile path never
+    gives a list."""
+
     __slots__ = ("wtype", "draft", "internal_arms", "pre_arms", "suf_arms",
                  "num_internal", "num_pre", "num_suf", "num_empty",
                  "longest_pre_len", "longest_suf_len", "consensus",
@@ -27,15 +32,9 @@ class Window:
     def __init__(self, draft_codes: np.ndarray, wtype: int = SHORT):
         self.wtype = wtype
         self.draft = draft_codes
-        self.internal_arms: List[np.ndarray] = []
-        self.pre_arms: List[np.ndarray] = []
-        self.suf_arms: List[np.ndarray] = []
-        self.num_internal = 0
-        self.num_pre = 0
-        self.num_suf = 0
-        self.num_empty = 0
-        self.longest_pre_len = 0
-        self.longest_suf_len = 0
+        self.internal_arms = self.pre_arms = self.suf_arms = ()
+        self.num_internal = self.num_pre = self.num_suf = 0
+        self.num_empty = self.longest_pre_len = self.longest_suf_len = 0
         self.consensus: Optional[str] = None
         self._filter = LongArmFilter(draft_codes) if wtype == LONG else None
 
@@ -48,18 +47,27 @@ class Window:
         if self._passes_filter(codes):
             self.num_pre += 1
             self.longest_pre_len = max(self.longest_pre_len, len(codes))
-            self.pre_arms.append(codes)
+            if self.pre_arms:
+                self.pre_arms.append(codes)
+            else:
+                self.pre_arms = [codes]
 
     def add_suffix(self, codes: np.ndarray) -> None:
         if self._passes_filter(codes):
             self.num_suf += 1
             self.longest_suf_len = max(self.longest_suf_len, len(codes))
-            self.suf_arms.append(codes)
+            if self.suf_arms:
+                self.suf_arms.append(codes)
+            else:
+                self.suf_arms = [codes]
 
     def add_internal(self, codes: np.ndarray) -> None:
         if self._passes_filter(codes):
             self.num_internal += 1
-            self.internal_arms.append(codes)
+            if self.internal_arms:
+                self.internal_arms.append(codes)
+            else:
+                self.internal_arms = [codes]
 
     def add_empty(self) -> None:
         self.num_empty += 1
@@ -78,15 +86,12 @@ class Window:
         every window's PackedSeq arms alive until the contig is
         destroyed after output — a large share of its 380 GB human-run
         footprint; freeing them per consensus caps our per-batch RSS."""
-        self.internal_arms = []
-        self.pre_arms = []
-        self.suf_arms = []
+        self.internal_arms = self.pre_arms = self.suf_arms = ()
 
     def clear_pre_suf(self) -> None:
         self.num_pre = 0
         self.num_suf = 0
-        self.pre_arms = []
-        self.suf_arms = []
+        self.pre_arms = self.suf_arms = ()
 
     def window_len(self) -> int:
         return len(self.draft)

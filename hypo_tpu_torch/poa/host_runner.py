@@ -123,6 +123,9 @@ def materialize_arms_bulk(ctg, wis: List[int]) -> None:
     if not want:
         return
     from ..dna import unpack2
+    for wi in want:
+        w = ctg.windows[wi]
+        w.internal_arms, w.pre_arms, w.suf_arms = [], [], []
     rows = np.nonzero(np.isin(windex, np.array(want)))[0]
     for r in rows:
         t = at[r]

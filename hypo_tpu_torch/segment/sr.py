@@ -6,7 +6,10 @@ if coverage >= cov_th and either support >= 2*floor(0.4*cov) ("80% tier",
 re-arms the 40% tier) or support >= floor(0.4*cov) while the previous
 tier-touching k-mer was 80% ("40% tier", accepted once then disarms).
 Runs of valid k-mers (closed when the scan passes the last covered base)
-become SRs; the first/last k-mer ids of each SR are its anchors.
+become SRs; the first/last k-mer ids of each SR are its anchors.  The
+tiers are one array pass (``sr_tiers``); the scan that arms and disarms
+the 40% tier is ``scan_strong_regions``, whose native twin is
+native.host_api.strong_regions.
 
 Copied from hypo_tpu/segment/sr.py.
 """
@@ -34,17 +37,22 @@ class StrongRegions:
         return int(self.sr_len.sum())
 
 
-def find_strong_regions(positions: np.ndarray, kids: np.ndarray,
-                        coverage: np.ndarray, support: np.ndarray,
-                        k: int) -> StrongRegions:
-    cov_th = SR_SETTINGS.cov_th
-    frac = SR_SETTINGS.supp_frac
-    # vectorized tier classification (the pvs_80 arming stays sequential)
-    covered = coverage >= cov_th
-    supp_th = (frac * coverage).astype(np.int64)  # floor, matches UINT cast
+def sr_tiers(coverage: np.ndarray, support: np.ndarray) -> np.ndarray:
+    """Each solid k-mer's tier, uint8: 2 for the 80% tier, 1 for the 40%
+    tier, 0 for neither (below ``cov_th`` or too little support)."""
+    covered = coverage >= SR_SETTINGS.cov_th
+    # floor, matches the reference's UINT cast
+    supp_th = (SR_SETTINGS.supp_frac * coverage).astype(np.int64)
     tier80 = covered & (support >= 2 * supp_th)
     tier40 = covered & ~tier80 & (support >= supp_th)
+    return (2 * tier80 + tier40).astype(np.uint8)
 
+
+def scan_strong_regions(positions: np.ndarray, kids: np.ndarray,
+                        tier: np.ndarray, k: int):
+    """The sequential part of the scan (the 40% tier's arming): SRs of
+    the solid positions given their tiers, as (sr_pos, sr_len,
+    anchor_kmers).  native.host_api.strong_regions is its twin."""
     sr_pos = []
     sr_len = []
     anchors = [0]
@@ -62,15 +70,15 @@ def find_strong_regions(positions: np.ndarray, kids: np.ndarray,
         in_sr = False
         pvs_80 = True
 
-    n = len(positions)
-    for i in range(n):
-        p = int(positions[i])
+    tiers = np.asarray(tier).tolist()
+    for i, p in enumerate(np.asarray(positions).tolist()):
         if in_sr and p > last_sr_pos:
             close()
-        if tier80[i]:
+        t = tiers[i]
+        if t == 2:
             valid = True
             pvs_80 = True
-        elif tier40[i]:
+        elif t == 1:
             valid = pvs_80
             pvs_80 = False
         else:
@@ -86,7 +94,7 @@ def find_strong_regions(positions: np.ndarray, kids: np.ndarray,
             close()
     if in_sr:
         close()
+    return (np.array(sr_pos, dtype=np.int64),
+            np.array(sr_len, dtype=np.int64),
+            np.array(anchors, dtype=np.int64))
 
-    return StrongRegions(np.array(sr_pos, dtype=np.int64),
-                         np.array(sr_len, dtype=np.int64),
-                         np.array(anchors, dtype=np.int64))

@@ -43,6 +43,11 @@ Where the spans are (names fixed, with no counts in them):
   loaded, ``pipeline.polish._Prefetch``; under ``polish``), and the
   counter ``pipeline.alignments_prefetched`` (1 a batch whose alignments
   the prefetch loaded);
+- counters ``pipeline.regions_native`` and ``pipeline.regions_python``:
+  the regions a contig's division made (``pipeline.contig.Contig
+  .divide_into_regions``, under ``pipeline.window_division``) through
+  the host library's one call, or through the Python walk where the
+  library did not load;
 - the long-read pass (``-B``), under ``pipeline.long_arms``:
   ``pipeline.long_load`` (the long-read BAM's batch loaded, with the
   MAPQ and ``-n`` filters) and ``pipeline.long_find`` (pseudo-windows,

@@ -11,7 +11,8 @@ one:
 - ``runner.materialize`` + ``runner.engine`` + ``runner.fallback_jobs``
   is ``runner.leftovers``;
 - the step counters: 0 < active window steps <= window steps, as the
-  tiles' arm counts give them;
+  tiles' arm counts give them; the region counters: every region divided
+  through the native call;
 - each span is a profiler range on the profiler's timeline, at its
   host times once tied by an anchor;
 - off, ``span()`` is the shared no-op, and a polish records nothing and
@@ -221,6 +222,20 @@ def test_step_counters(traced):
              for n in ("tiles.window_steps", "tiles.active_window_steps")}
     assert 0 < total["tiles.active_window_steps"] <= total[
         "tiles.window_steps"]
+
+
+@pytest.mark.parametrize("run", ["sr", "hybrid"])
+def test_region_counters(traced, run):
+    """The polish's regions all divided through the native call (a few
+    hundred on 20 kbp), none through the Python walk."""
+    spans, counts, _p = traced[run]
+    total = {}
+    for name, n, *_ in counts:
+        total[name] = total.get(name, 0) + n
+    assert total.get("pipeline.regions_python", 0) == 0
+    n_regions = total["pipeline.regions_native"]
+    (root,) = _roots(spans)
+    assert 200 < n_regions < root.attrs["draft_bp"] / 5
 
 
 def test_step_counters_count_rows_times_kmax(recorder):
